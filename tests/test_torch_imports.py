@@ -1,0 +1,66 @@
+"""The port stands alone: `ray_tpu_torch` and `chip_smoke.py` import
+neither JAX/Flax nor anything of the JAX package `ray_tpu`.
+
+Checked two ways: a fresh interpreter imports every module of the
+package and chip_smoke's imports, then inspects `sys.modules`; and an
+AST scan of every source file finds no such import statement (which
+also catches imports inside functions that the first check never runs).
+"""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "ray_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_import_leaves_no_jax_or_ray_tpu_in_sys_modules():
+    mods = list(_modules())
+    assert "ray_tpu_torch.serve.llm.engine" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, f"the port imported {bad}"
+    assert "ray_tpu_torch.serve.llm.engine" in loaded
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_forbidden_import_statements(path):
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    bad = [n for n in names if _forbidden(n)]
+    assert not bad, f"{path} imports {bad}"
