@@ -9,21 +9,35 @@ a non-zero exit) on any failed check:
 
 1. device: the card's name and power limit (nvidia-smi) and versions;
 2. build: every CUDA kernel source of the port, compiled from the
-   checkout (`ray_tpu_torch/ops/csrc/*.cu`), with ptxas' register and
-   shared-memory report;
+   checkout (`ray_tpu_torch/ops/csrc/*.cu`, one nvcc each, in parallel),
+   with ptxas' register and shared-memory report;
 3. kernels: `flash_attention_fwd` against its plain PyTorch version on
    the card at the serving shapes (GPT-2 prefill, Llama GQA, non-causal,
-   the long-T regime, f32/fp16, head_dim 16/32/128), with the kernel's time,
-   the plain version's, a PyTorch library call's (a yardstick only) and
-   the least time the card could take;
-4. serving: GPT-2 125M through `LLMEngine` at full width (random
+   the long-T regime, f32/fp16, head_dim 16/32/128) and the training
+   shape, with the kernel's time, the plain version's, a PyTorch library
+   call's (a yardstick only) and the least time the card could take;
+4. backward kernels: `flash_attention_bwd` (dQ and dK/dV) against its
+   plain version at the training shapes (GPT-2 B=16 T=1024, Llama GQA
+   12:4, long context B=4 T=4096, non-causal, ragged T, fp16 d=128, f32
+   d=16/32), with the same four times (the library's is SDPA forward +
+   backward minus SDPA forward);
+5. training: GPT-2 125M at full width and depth (bf16 compute, f32
+   master weights, remat off), B=16, T=1024, flash attention, fused
+   cross-entropy on the tied head, AdamW(3e-4, weight decay 1e-4) on one
+   fixed random batch: a warm step, then 10 timed steps. Checks: finite,
+   falling losses, both kernels launched n_layer times per step (the
+   backward twice: dQ, dK/dV), and at B=4 the loss and every parameter
+   gradient against a plain-attention (`full_attention`) model on the
+   same weights. Prints tokens/s, MFU, peak memory and a profiled step;
+6. serving: GPT-2 125M through `LLMEngine` at full width (random
    weights from a seed, bf16): requests of 5-900 prompt tokens, two of
    them sharing a 64-token prefix, 32 new tokens each. Checks: every
    request finishes with the right length, the flash kernel ran
-   n_layer times per prefill, no KV page leaked, and each request's
-   first-token logits agree with a plain-attention prefill on the card.
-   Then the same, shorter, for Llama-125M (grouped-query attention);
-5. the `kernels` JSON line (every ported kernel with its numbers), the
+   n_layer times per prefill (and the backward never), no KV page
+   leaked, and each request's first-token logits agree with a
+   plain-attention prefill on the card. Then the same, shorter, for
+   Llama-125M (grouped-query attention);
+7. the `kernels` JSON line (every ported kernel with its numbers), the
    card line, and last the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -37,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -45,8 +60,12 @@ import torch.nn.functional as F
 from ray_tpu_torch.models import gpt as gpt_mod
 from ray_tpu_torch.models import llama as llama_mod
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.flash_attention import (flash_attention,
+from ray_tpu_torch.ops.flash_attention import (BWD_KERNELS_PER_CALL,
+                                               flash_attention,
+                                               flash_attention_bwd,
+                                               flash_attention_bwd_plain,
                                                flash_attention_plain)
+from ray_tpu_torch.ops.fused_ce import fused_cross_entropy
 from ray_tpu_torch.parallel.ring_attention import full_attention
 from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
 
@@ -62,10 +81,25 @@ PEAK_BYTES = 3.35e12        # HBM3
 # is 4e-3 (bf16) and 5e-4 (fp16). lse is f32 in both, from unrounded P.
 TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float16: (4e-3, 1e-3),
        torch.float32: (1e-4, 1e-4)}
+# Backward kernel vs plain, relative to each gradient's max. Both build
+# P from the same lse and round dS and P where Pallas does; the f32 sums
+# run in another order, so a dS element may round to the neighbouring
+# bf16/fp16 value, and dq/dk/dv are rounded to the input dtype (half an
+# ulp is 2e-3 of the max in bf16, 2.4e-4 in fp16).
+BWD_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-4}
 # First-token logits, flash prefill vs plain prefill, bf16 through every
 # layer of the model: logits are ~N(0, 0.55) at init, and bf16 rounding
 # differences in attention propagate through 12 residual blocks.
 LOGIT_ATOL = 0.1
+# Training, kernel path vs a full_attention model on the same weights
+# (bf16 compute, B=4, T=1024), relative to each gradient's max (the loss:
+# relative). full_attention rounds scores and probabilities to bf16 in its
+# einsums where the kernels keep them in f32 and round P once, and the
+# differences (a bf16 ulp is 3.9e-3) pass through 12 blocks forward and
+# back, so a few ulps of the max are expected (PERF.md has the measured
+# worst case).
+GRAD_RTOL = 5e-2
+LOSS_RTOL = 1e-3
 
 
 def card_line() -> str:
@@ -106,6 +140,16 @@ def host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def _roofline(nbytes, flops, dtype):
+    """(ms, "bytes" or "operations"): the larger of the bytes over HBM
+    bandwidth and the FLOPs over the peak rate of the units the kernels
+    use for `dtype`."""
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
 def attention_bound(b, t, h, h_kv, d, dtype, causal):
     """Least time (ms) the card could take: the larger of the bytes the
     function must move (q, k, v read once; O and lse written once) over
@@ -114,28 +158,77 @@ def attention_bound(b, t, h, h_kv, d, dtype, causal):
     elt = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * b * t * h * d + 2 * b * t * h_kv * d) * elt + b * h * t * 4
     pairs = t * (t + 1) / 2 if causal else t * t
-    flops = 4.0 * b * h * d * pairs
-    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
-                                       else "bytes")
+    return _roofline(nbytes, 4.0 * b * h * d * pairs, dtype)
 
 
-def library_attention(q, k, v, causal):
-    """One PyTorch call computing the same function (yardstick only)."""
+def attention_bwd_bound(b, t, h, h_kv, d, dtype, causal):
+    """Least time (ms) the card could take for the backward: the larger
+    of the bytes it must move (q, k, v, dO, lse and delta read once; dq,
+    dk, dv written once) over HBM bandwidth and its FLOPs (10 * D per
+    head and kept (q, k) pair: QK^T and dO V^T, recomputed in both
+    kernels, then dS K, dS^T Q and P^T dO) over the peak rate."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (3 * b * t * h * d + 4 * b * t * h_kv * d) * elt \
+        + 2 * b * h * t * 4
+    pairs = t * (t + 1) / 2 if causal else t * t
+    return _roofline(nbytes, 10.0 * b * h * d * pairs, dtype)
+
+
+def _sdpa_layout(q, k, v):
+    """[B, H, T, D] views for SDPA, with GQA KV repeated query-side."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if k.shape[2] != q.shape[2]:
         g = q.shape[2] // k.shape[2]
         kt = kt.repeat_interleave(g, dim=1)
         vt = vt.repeat_interleave(g, dim=1)
+    return qt, kt, vt
+
+
+def library_attention(q, k, v, causal):
+    """One PyTorch call computing the same function (yardstick only)."""
+    qt, kt, vt = _sdpa_layout(q, k, v)
     return lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                   is_causal=causal)
+
+
+def library_attention_bwd(q, k, v, do, causal):
+    """SDPA forward with grad, and forward + backward (yardstick only):
+    the backward's time is the difference of the two."""
+    qt, kt, vt = (x.detach().requires_grad_()
+                  for x in _sdpa_layout(q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+    return fwd, fwd_bwd
+
+
+# kernel-name fragments -> the kind of work, first match wins
+KERNEL_CLASSES = (
+    ("flash attention", ("flash_fwd_kernel", "flash_bwd_")),
+    ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "gemv")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("reduction", ("reduce_kernel", "softmax")),
+    ("index/scatter", ("index", "gather", "scatter")),
+    ("copy/cast", ("copy", "Cat")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def _kernel_class(name):
+    return next((cls for cls, keys in KERNEL_CLASSES
+                 if any(key in name for key in keys)), "other")
 
 
 def profile_steps(fn, steps: int):
     """Device time of `steps` calls of `fn` from a torch.profiler trace:
     per-step wall time, device busy time (the sum of kernel durations)
-    and the busy share, plus the kernels that take the most time."""
+    and the busy share, the kernels that take the most time, and the
+    device time by kind of kernel (`KERNEL_CLASSES`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -150,18 +243,28 @@ def profile_steps(fn, steps: int):
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a user annotation (e.g. "Optimizer.step#AdamW.step") spans
+        # kernels that are counted on their own
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.device_time_total)
     busy_us = sum(us for _, us in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    by_class = {}
+    for name, (_, us) in by_name.items():
+        cls = _kernel_class(name)
+        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3 / steps
     return dict(
         wall_ms=wall_us / 1e3 / steps,
         device_ms=busy_us / 1e3 / steps if busy_us else None,
         busy_share=busy_us / wall_us if busy_us else None,
         kernels_per_step=sum(n for n, _ in by_name.values()) / steps,
         flash_ms=sum(us for name, (_, us) in by_name.items()
-                     if "flash_fwd_kernel" in name) / 1e3 / steps,
+                     if "flash_fwd_kernel" in name
+                     or "flash_bwd_" in name) / 1e3 / steps,
+        flash_bwd_ms=sum(us for name, (_, us) in by_name.items()
+                         if "flash_bwd_" in name) / 1e3 / steps,
+        by_class=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         top=[(name[:70], us / 1e3 / steps) for name, (_, us) in top])
 
 
@@ -198,8 +301,22 @@ KERNEL_SHAPES = [
     ("f32 d=128 T=300", 1, 300, 4, 4, 128, torch.float32, False),
     ("d=32 T=77", 2, 77, 2, 2, 32, torch.bfloat16, True),
     ("f32 d=16 T=50", 1, 50, 4, 2, 16, torch.float32, True),
+    ("gpt2 train B=16 T=1024", 16, 1024, 12, 12, 64, torch.bfloat16, True),
 ]
 MAIN_SHAPE = "gpt2 prefill T=1024"
+TRAIN_SHAPE = "gpt2 train B=16 T=1024"
+BWD_SHAPES = [
+    # (label, b, t, h, h_kv, d, dtype, causal)
+    (TRAIN_SHAPE, 16, 1024, 12, 12, 64, torch.bfloat16, True),
+    ("llama GQA 12:4 B=16 T=1024", 16, 1024, 12, 4, 64, torch.bfloat16,
+     True),
+    ("long B=4 T=4096", 4, 4096, 12, 12, 64, torch.bfloat16, True),
+    ("non-causal B=4 T=1024", 4, 1024, 12, 12, 64, torch.bfloat16, False),
+    ("ragged B=2 T=1000", 2, 1000, 12, 12, 64, torch.bfloat16, True),
+    ("fp16 d=128 B=2 T=777", 2, 777, 8, 2, 128, torch.float16, True),
+    ("f32 d=32 B=2 T=300", 2, 300, 4, 2, 32, torch.float32, True),
+    ("f32 d=16 B=1 T=50", 1, 50, 4, 2, 16, torch.float32, False),
+]
 
 
 def phase_kernels(gen):
@@ -221,7 +338,7 @@ def phase_kernels(gen):
             assert err <= tol_o and lse_err <= tol_lse, (
                 f"{label}: kernel disagrees with plain: O err {err} "
                 f"(tol {tol_o}), lse err {lse_err} (tol {tol_lse})")
-            iters = 5 if t >= 2048 else 20
+            iters = 5 if t * b >= 2048 else 20
             ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
                          iters)
             plain_ms = cuda_ms(
@@ -242,6 +359,188 @@ def phase_kernels(gen):
                   f"{bound_ms * 1e3:.2f} us ({bound_by}) = "
                   f"{bound_ms / ms:.1%} of roofline")
     return rows
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def phase_backward(gen, device="cuda"):
+    rows = []
+    # no_grad, not inference_mode: the SDPA yardstick needs autograd
+    with torch.no_grad():
+        for label, b, t, h, h_kv, d, dtype, causal in BWD_SHAPES:
+            q, k, v, do = (torch.randn(b, t, n, d, generator=gen,
+                                       device=device).to(dtype)
+                           for n in (h, h_kv, h_kv, h))
+            out, lse = flash_attention(q, k, v, causal=causal,
+                                       return_lse=True)
+            got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+            want = flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                             causal=causal)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                assert g.shape == w.shape and g.dtype == dtype, label
+                assert torch.isfinite(g.float()).all(), (label, name)
+                errs[name] = (float((g.float() - w.float()).abs().max()),
+                              _rel_err(g, w))
+            worst = max(rel for _, rel in errs.values())
+            assert worst <= BWD_TOL[dtype], (
+                f"{label}: backward kernel disagrees with plain: {errs} "
+                f"(tol {BWD_TOL[dtype]} of each gradient's max)")
+            del got, want
+            iters = 5 if b * t >= 4096 else 20
+            ms = cuda_ms(lambda: flash_attention_bwd(
+                q, k, v, out, lse, do, causal=causal), iters)
+            plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, out, lse, do, causal=causal), iters)
+            with torch.enable_grad():
+                fwd, fwd_bwd = library_attention_bwd(q, k, v, do, causal)
+                lib_fwd_ms = cuda_ms(fwd, iters)
+                lib_fwd_bwd_ms = cuda_ms(fwd_bwd, iters)
+            bound_ms, bound_by = attention_bwd_bound(b, t, h, h_kv, d,
+                                                     dtype, causal)
+            row = dict(shape=label, b=b, t=t, h=h, h_kv=h_kv, d=d,
+                       dtype=str(dtype).replace("torch.", ""),
+                       causal=causal,
+                       max_abs_err=max(e for e, _ in errs.values()),
+                       rel_err={n: r for n, (_, r) in errs.items()},
+                       ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
+                       library_fwd_ms=lib_fwd_ms,
+                       library_fwd_bwd_ms=lib_fwd_bwd_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(row)
+            print(f"backward {label:28s} rel err dq/dk/dv "
+                  f"{'/'.join(f'{r:.1e}' for _, r in errs.values())} | "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa bwd "
+                  f"{row['library_ms']:.4f} ms (fwd+bwd {lib_fwd_bwd_ms:.4f}"
+                  f" - fwd {lib_fwd_ms:.4f}) | bound {bound_ms * 1e3:.2f} "
+                  f"us ({bound_by}) = {bound_ms / ms:.1%} of roofline")
+    return rows
+
+
+def _train_setup(cfg, seed, batch, seq, attention_fn, device):
+    """A trainable GPT with fresh f32 master weights (from `seed`) and one
+    fixed random token batch from numpy."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = gpt_mod.init_params(cfg, gen, device=device,
+                                 dtype=torch.float32)
+    model = gpt_mod.GPT.from_params(cfg, params, attention_fn=attention_fn,
+                                    trainable=True)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (batch, seq + 1))
+    toks = torch.from_numpy(toks).to(device)
+    return model, toks[:, :-1], toks[:, 1:]
+
+
+def _loss(model, inputs, targets):
+    hidden, wte = model(inputs, return_hidden=True)
+    return fused_cross_entropy(hidden, wte, targets)
+
+
+def phase_train(seed=3, batch=16, seq=1024, steps=10, grad_batch=4,
+                cfg=None, device="cuda"):
+    cfg = cfg or gpt_mod.GPTConfig.gpt2_125m(remat=False, max_seq_len=seq)
+    print(f"train: {cfg}, B={batch}, T={seq}")
+    flash = partial(flash_attention, causal=True)
+    model, inputs, targets = _train_setup(cfg, seed, batch, seq, flash,
+                                          device)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                            betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+
+    def step():
+        loss = _loss(model, inputs, targets)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    t0 = time.perf_counter()
+    losses = [step()]  # the warm step
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts at 0 just before, read just after
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step())
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    fwd_launches = flash_attention.launches
+    bwd_launches = flash_attention_bwd.launches
+
+    losses = [float(x) for x in losses]
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    assert fwd_launches == cfg.n_layer * steps, fwd_launches
+    assert bwd_launches == cfg.n_layer * steps * BWD_KERNELS_PER_CALL, \
+        bwd_launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = elapsed / steps * 1e3
+    tok_s = batch * seq * steps / elapsed
+    mfu = gpt_mod.flops_per_token(cfg, seq) * tok_s / PEAK_BF16_FLOPS
+    prof = profile_steps(step, 1)
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # the kernel path's loss and gradients against full_attention's
+    grads, grad_losses = {}, {}
+    for name, fn in (("flash", flash),
+                     ("full", partial(full_attention, causal=True))):
+        net, x, y = _train_setup(cfg, seed + 1, grad_batch, seq, fn,
+                                 device)
+        loss = _loss(net, x, y)
+        loss.backward()
+        grad_losses[name] = float(loss.detach())
+        grads[name] = {n: p.grad for n, p in net.named_parameters()}
+        del net
+    worst_name, worst = max(
+        ((n, _rel_err(grads["flash"][n], grads["full"][n]))
+         for n in grads["full"]), key=lambda kv: kv[1])
+    loss_rel = abs(grad_losses["flash"] - grad_losses["full"]) / abs(
+        grad_losses["full"])
+    assert all(torch.isfinite(g).all() for g in grads["flash"].values())
+    assert worst <= GRAD_RTOL, (worst_name, worst)
+    assert loss_rel <= LOSS_RTOL, grad_losses
+    del grads
+    torch.cuda.empty_cache()
+
+    busy = "not measured" if prof["busy_share"] is None else (
+        f"{prof['device_ms']:.2f} ms device busy = "
+        f"{prof['busy_share']:.1%} of the profiled step, "
+        f"{prof['device_ms'] / step_ms:.1%} of the unprofiled one; flash "
+        f"fwd+bwd {prof['flash_ms']:.2f} ms "
+        f"({prof['flash_ms'] / prof['device_ms']:.1%} of device time; "
+        f"bwd {prof['flash_bwd_ms']:.2f} ms)")
+    print(f"train: losses {[round(x, 4) for x in losses]}")
+    print(f"train: warm step {warm_s:.2f} s; {steps} steps in {elapsed:.3f}"
+          f" s = {step_ms:.2f} ms/step, {tok_s:.0f} tok/s, MFU "
+          f"{mfu:.1%} of 989 TFLOP/s bf16 (card: {card_line()}); peak "
+          f"memory {peak_gib:.2f} GiB; launches fwd {fwd_launches} bwd "
+          f"{bwd_launches}")
+    print(f"train: profile: {prof['wall_ms']:.2f} ms/step wall, {busy}, "
+          f"{prof['kernels_per_step']:.0f} kernels/step; device ms by kind "
+          f"{ {k: round(v, 2) for k, v in prof['by_class'].items()} }; top "
+          f"{prof['top']}")
+    print(f"train: B={grad_batch} kernel path vs full_attention: loss "
+          f"{grad_losses['flash']:.5f} vs {grad_losses['full']:.5f} "
+          f"(rel {loss_rel:.1e}); worst gradient {worst_name} "
+          f"{worst:.2e} of its max (tol {GRAD_RTOL})")
+    return dict(model="gpt2_125m", batch=batch, seq=seq, steps=steps,
+                remat=cfg.remat, losses=losses, warm_s=warm_s,
+                step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu,
+                peak_mem_gib=peak_gib, fwd_launches=fwd_launches,
+                bwd_launches=bwd_launches, profile=prof,
+                grad_check=dict(batch=grad_batch, losses=grad_losses,
+                                loss_rel=loss_rel, worst=worst,
+                                worst_param=worst_name, tol=GRAD_RTOL))
 
 
 class _SmokeEngine(LLMEngine):
@@ -285,6 +584,7 @@ def phase_engine(name, mod, cfg, net_cls, buckets, prompt_lens, max_new,
 
     # the main path: counts at 0 just before, read just after
     flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
     eng.start()  # served by the pump thread, as a replica would
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new) for p in prompts]
@@ -293,6 +593,7 @@ def phase_engine(name, mod, cfg, net_cls, buckets, prompt_lens, max_new,
     eng.quiesce()
     eng.stop()
     launches = flash_attention.launches
+    assert flash_attention_bwd.launches == 0  # serving runs no backward
     m = eng.metrics()
     prefill_calls = {int(key.split(":")[1]): c
                      for key, c in m["bucket_calls"].items()
@@ -377,13 +678,23 @@ def phase_engine(name, mod, cfg, net_cls, buckets, prompt_lens, max_new,
     return row
 
 
-def kernels_line(rows, gpt, llama):
-    """The `kernels` entries: every ported kernel with its numbers, at
-    the main path's largest prefill shape, plus the GPT-2 run's launches
-    per prefill bucket at that bucket's kernel time."""
+def _numbers(row):
+    return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}
+
+
+def kernels_line(rows, bwd_rows, train, gpt, llama):
+    """The `kernels` entries: every ported kernel with its numbers. The
+    forward at the serving path's largest prefill shape (with the GPT-2
+    run's launches per prefill bucket at that bucket's time) and at the
+    training shape; the backward at the training shape. `launches` are
+    the GPT-2 serving run's (forward) and the training run's (backward);
+    `launches_*` the other main paths'."""
     main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE)
+    train_row = next(r for r in rows if r["shape"] == TRAIN_SHAPE)
+    bwd_row = next(r for r in bwd_rows if r["shape"] == TRAIN_SHAPE)
     # the GPT-2 run's launches per prefill bucket, at that bucket's time
-    by_t = {r["t"]: r for r in rows if r["shape"].startswith("gpt2")}
+    by_t = {r["t"]: r for r in rows if r["shape"].startswith("gpt2 prefill")}
     main_path = [dict(t=t, launches=gpt["n_layer"] * n, ms=by_t[t]["ms"],
                       bound_ms=by_t[t]["bound_ms"])
                  for t, n in sorted(gpt["prefill_calls"].items())]
@@ -396,17 +707,31 @@ def kernels_line(rows, gpt, llama):
                     "118 (_fwd_kernel)",
         "launches": gpt["flash_launches"],
         "launches_llama": llama["flash_launches"],
+        "launches_train": train["fwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
+        **_numbers(main_row),
         "at": MAIN_SHAPE,
+        "train": dict(at=TRAIN_SHAPE, launches=train["fwd_launches"],
+                      **_numbers(train_row)),
         "main_path": main_path,
         "main_path_kernel_ms": sum(r["launches"] * r["ms"]
                                    for r in main_path),
         "shapes": rows,
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        "replaces": "ray_tpu/ops/flash_attention.py:192 "
+                    "(_bwd_single_kernel); ray_tpu/ops/flash_attention.py:"
+                    "288 (_dq_kernel); ray_tpu/ops/flash_attention.py:326 "
+                    "(_dkv_kernel)",
+        "launches": train["bwd_launches"],
+        "kernels_per_call": BWD_KERNELS_PER_CALL,
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        "max_rel_err": max(max(r["rel_err"].values()) for r in bwd_rows),
+        **_numbers(bwd_row),
+        "at": TRAIN_SHAPE,
+        "shapes": bwd_rows,
     }]
 
 
@@ -425,6 +750,8 @@ def main() -> int:
     build_s = phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase_kernels(gen)
+    bwd_rows = phase_backward(gen)
+    train = phase_train()
 
     gpt = phase_engine(
         "gpt", gpt_mod, gpt_mod.GPTConfig.gpt2_125m(), gpt_mod.GPT,
@@ -437,8 +764,9 @@ def main() -> int:
         buckets=LLAMA_BUCKETS,
         prompt_lens=[9, 150, 69, 94, 1500], max_new=16, seed=2)
 
-    kernels = kernels_line(rows, gpt, llama)
-    print(json.dumps({"build_s": build_s, "engines": [gpt, llama]}))
+    kernels = kernels_line(rows, bwd_rows, train, gpt, llama)
+    print(json.dumps({"build_s": build_s, "train": train,
+                      "engines": [gpt, llama]}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

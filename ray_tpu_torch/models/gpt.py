@@ -1,22 +1,30 @@
 """GPT-2-family decoder-only transformer in PyTorch.
 
-Port of `ray_tpu/models/gpt.py` for serving: the config, the pre-LN
-`Block` with its `attention_fn` seam, the tied-head `GPT`, and the decode
-path (`prefill_step`, `decode_step`, `chunk_step`). The training losses
-come with the training slice.
+Port of `ray_tpu/models/gpt.py`: the config, the pre-LN `Block` with its
+`attention_fn` seam, the tied-head `GPT` (with dropout and per-block
+remat for training), the training losses (`cross_entropy_loss`,
+`chunked_cross_entropy`) and the decode path (`prefill_step`,
+`decode_step`, `chunk_step`).
 
 Numerics follow the Flax model:
-- compute in `cfg.dtype` (bf16 by default). Flax keeps f32 params and
-  casts each one to `cfg.dtype` where it is used, so the port stores the
-  projection weights and embeddings in `cfg.dtype` already (the values a
-  forward sees are identical) and keeps the norm parameters, which Flax
-  reads in f32, in `cfg.param_dtype`;
+- compute in `cfg.dtype` (bf16 by default). Flax keeps params in
+  `param_dtype` (f32) and casts each one to `cfg.dtype` where it is used;
+  the port's `Dense` and embeddings do the same cast at use, so one module
+  serves both paths: serving loads weights already in `cfg.dtype` (the
+  cast is a no-op, the values a forward sees are identical), training
+  loads f32 master weights (`init_params(..., dtype=torch.float32)` or
+  `convert.gpt_params_from_jax(..., dtype=torch.float32)`) that the
+  optimizer updates. Norm parameters, which Flax reads in f32, stay in
+  `cfg.param_dtype`;
 - LayerNorm is Flax's: f32 statistics, fast variance E[x²]−E[x]², eps
   1e-6 (`_ln`), not `torch.nn.LayerNorm`;
 - GELU is the tanh approximation (`nn.gelu`'s default);
-- projections are `nn.Linear`, whose weight is the transpose of the Flax
-  Dense kernel ([out, in] for [in, out]); `models/convert.py` carries
-  weights across.
+- a `Dense` weight is the transpose of the Flax Dense kernel ([out, in]
+  for [in, out]), as in `nn.Linear`; `models/convert.py` carries weights
+  across;
+- dropout (after `mlp_down` only, as in Flax) draws from an explicit
+  `torch.Generator`; the generators differ from JAX's, so only its
+  distribution and its p=0 identity carry over.
 
 Parameter names follow the Flax tree (`h{i}.attn_qkv.weight` for
 `h{i}/attn_qkv/kernel`, `ln_1.scale`, ...).
@@ -31,6 +39,7 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.parallel.ring_attention import full_attention
@@ -43,8 +52,10 @@ class GPTConfig:
     n_head: int = 12
     d_model: int = 768
     max_seq_len: int = 1024
+    dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    remat: bool = True
 
     @classmethod
     def gpt2_125m(cls, **kw):
@@ -85,6 +96,36 @@ class LayerNorm(nn.Module):
         return _ln(x, self.scale, self.bias, self.dtype)
 
 
+class Dense(nn.Module):
+    """`flax.linen.Dense(dtype=dtype)`: y = x W^T + b with the weight
+    ([out, in]) and bias cast to `dtype` at use. Weights stored in `dtype`
+    (serving) make the cast a no-op; f32 master weights (training) get
+    their gradients through it in f32."""
+
+    def __init__(self, features_in: int, features_out: int, dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty(features_out, features_in, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(features_out, dtype=dtype))
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+def dropout(x, rate: float, keep):
+    """`flax.linen.Dropout`: kept entries scaled by 1 / (1 - rate), the
+    others zero. `keep` is the boolean mask (`dropout_keep`)."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def dropout_keep(shape, rate: float, generator: torch.Generator, device):
+    """A keep mask with P(keep) = 1 - rate, drawn from `generator`."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (u < 1.0 - rate).to(device)
+
+
 class Block(nn.Module):
     """Pre-LN transformer block."""
 
@@ -95,11 +136,11 @@ class Block(nn.Module):
         d = cfg.d_model
         self.attention_fn = attention_fn
         self.ln_1 = LayerNorm(d, cfg.dtype, cfg.param_dtype)
-        self.attn_qkv = nn.Linear(d, 3 * d, dtype=cfg.dtype)
-        self.attn_out = nn.Linear(d, d, dtype=cfg.dtype)
+        self.attn_qkv = Dense(d, 3 * d, cfg.dtype)
+        self.attn_out = Dense(d, d, cfg.dtype)
         self.ln_2 = LayerNorm(d, cfg.dtype, cfg.param_dtype)
-        self.mlp_up = nn.Linear(d, 4 * d, dtype=cfg.dtype)
-        self.mlp_down = nn.Linear(4 * d, d, dtype=cfg.dtype)
+        self.mlp_up = Dense(d, 4 * d, cfg.dtype)
+        self.mlp_down = Dense(4 * d, d, cfg.dtype)
 
     def project_qkv(self, x):
         """ln_1 + the fused QKV projection, split into q/k/v
@@ -111,14 +152,18 @@ class Block(nn.Module):
         return tuple(t.reshape(*lead, cfg.n_head, hd)
                      for t in qkv.split(cfg.d_model, dim=-1))
 
-    def residual_mlp(self, x, att):
+    def residual_mlp(self, x, att, keep=None):
         """x + attn_out(att), then the MLP sub-block with its residual;
-        att is [..., d_model]."""
+        att is [..., d_model]. `keep` is the dropout mask of the MLP
+        output (None: no dropout)."""
         x = x + self.attn_out(att)
         h = F.gelu(self.mlp_up(self.ln_2(x)), approximate="tanh")
-        return x + self.mlp_down(h)
+        h = self.mlp_down(h)
+        if keep is not None:
+            h = dropout(h, self.config.dropout, keep)
+        return x + h
 
-    def forward(self, x, kv_sink: Optional[list] = None):
+    def forward(self, x, kv_sink: Optional[list] = None, keep=None):
         b, t = x.shape[0], x.shape[1]
         q, k, v = self.project_qkv(x)
         # decode-cache tap (serve.llm prefill), the Flax `sow`
@@ -126,25 +171,35 @@ class Block(nn.Module):
             kv_sink.append((k, v))
         attend = self.attention_fn or partial(full_attention, causal=True)
         att = attend(q, k, v).reshape(b, t, self.config.d_model)
-        return self.residual_mlp(x, att)
+        return self.residual_mlp(x, att, keep)
 
 
 def _from_params(cls, config, params: Dict[str, torch.Tensor],
-                 attention_fn: Optional[Callable] = None):
-    """An inference model over `params` (from `init_params` or
-    `convert`), sharing their storage: two models built from one dict
-    hold one copy of the weights."""
+                 attention_fn: Optional[Callable] = None,
+                 trainable: bool = False):
+    """A model over `params` (from `init_params` or `convert`), sharing
+    their storage: two models built from one dict hold one copy of the
+    weights (and an optimizer step on one is seen by the other). By
+    default an inference model (frozen, eval mode); `trainable=True`
+    gives one whose parameters require grad, in train mode."""
     with torch.device("meta"):
         net = cls(config, attention_fn)
     net.load_state_dict(params, assign=True)
-    return net.requires_grad_(False).eval()
+    return net.requires_grad_(trainable).train(trainable)
 
 
 class GPT(nn.Module):
     """Decoder-only LM with a tied head. `attention_fn` swaps the
-    attention of every block (the serving engine passes the flash
-    kernel). `return_hidden=True` skips the LM head and returns
-    `(hidden [B, T, D], wte [V, D])`."""
+    attention of every block (the serving engine and the train step pass
+    the flash kernel). `return_hidden=True` skips the LM head and returns
+    `(hidden [B, T, D], wte [V, D])`, for `fused_cross_entropy` or
+    `chunked_cross_entropy`.
+
+    Training: `deterministic=False` turns dropout on (`cfg.dropout > 0`),
+    drawing from `generator`. With `cfg.remat` each block is recomputed in
+    the backward (`torch.utils.checkpoint`) whenever grad is enabled; its
+    dropout mask is drawn before the checkpointed call, so the recompute
+    reuses it."""
 
     def __init__(self, config: GPTConfig,
                  attention_fn: Optional[Callable] = None):
@@ -164,12 +219,23 @@ class GPT(nn.Module):
         return [getattr(self, f"h{i}") for i in range(self.config.n_layer)]
 
     def forward(self, tokens, return_hidden: bool = False,
-                kv_sink: Optional[list] = None):
+                kv_sink: Optional[list] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         cfg = self.config
         t = tokens.shape[1]
+        drop = cfg.dropout > 0 and not deterministic
+        if drop and generator is None:
+            raise ValueError("GPT: dropout needs a torch.Generator "
+                             "(deterministic=False, dropout > 0)")
+        remat = cfg.remat and torch.is_grad_enabled() and kv_sink is None
         x = self.wte.to(cfg.dtype)[tokens] + self.wpe.to(cfg.dtype)[None, :t]
         for blk in self.blocks():
-            x = blk(x, kv_sink)
+            keep = dropout_keep(x.shape, cfg.dropout, generator, x.device) \
+                if drop else None
+            if remat:
+                x = checkpoint(blk, x, None, keep, use_reentrant=False)
+            else:
+                x = blk(x, kv_sink, keep)
         x = self.ln_f(x)
         if return_hidden:
             return x, self.wte
@@ -183,14 +249,17 @@ def _normal(shape, std, generator, device, dtype):
 
 
 def init_params(cfg: GPTConfig, generator: torch.Generator,
-                device=None) -> Dict[str, torch.Tensor]:
+                device=None, dtype: Optional[torch.dtype] = None
+                ) -> Dict[str, torch.Tensor]:
     """Fresh weights with the Flax model's init distributions: Dense
     kernels normal(0.02), biases zero, norm scales one, `wte`
-    normal(0.02), `wpe` normal(0.01). The values differ from JAX's for
-    the same seed (two different generators); tests that compare the two
-    frameworks carry JAX's weights across with `convert` instead."""
+    normal(0.02), `wpe` normal(0.01). Projections and embeddings are in
+    `dtype` (default `cfg.dtype`: serving; `torch.float32` for training's
+    master weights). The values differ from JAX's for the same seed (two
+    different generators); tests that compare the two frameworks carry
+    JAX's weights across with `convert` instead."""
     device = resolve_device(device)
-    d, dt = cfg.d_model, cfg.dtype
+    d, dt = cfg.d_model, dtype or cfg.dtype
     normal = partial(_normal, generator=generator, device=device, dtype=dt)
     p = {"wte": normal((cfg.vocab_size, d), 0.02),
          "wpe": normal((cfg.max_seq_len, d), 0.01)}
@@ -214,6 +283,49 @@ def _norm_params(prefix, d, dtype, device, bias=True):
     if bias:
         p[f"{prefix}.bias"] = torch.zeros(d, dtype=dtype, device=device)
     return p
+
+
+def _nll_sum(logits, targets, ignore_index):
+    """(sum of the token NLLs in float32 over the targets that are not
+    `ignore_index`, their count)."""
+    mask = (targets != ignore_index).float()
+    targets = torch.clamp(targets, min=0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    return (nll * mask).sum(), mask.sum()
+
+
+def cross_entropy_loss(logits, targets, ignore_index: int = -1):
+    """Mean token NLL in float32 (stable softmax on bf16 logits)."""
+    total, count = _nll_sum(logits, targets, ignore_index)
+    return total / torch.clamp(count, min=1.0)
+
+
+def _chunk_nll(h_blk, t_blk, wte_c, ignore_index):
+    return _nll_sum(torch.einsum("bcd,vd->bcv", h_blk, wte_c), t_blk,
+                    ignore_index)
+
+
+def chunked_cross_entropy(hidden, wte, targets, ignore_index: int = -1,
+                          chunk_size: int = 128):
+    """LM-head + token NLL computed blockwise over the sequence.
+
+    One [B, chunk, V] logits block is live at a time instead of the whole
+    [B, T, V] tensor: each block is checkpointed, so its logits are
+    recomputed in the backward rather than kept (the JAX `lax.scan`
+    becomes a Python loop). Same math as
+    `cross_entropy_loss(logits, targets)` on the full logits; a sequence
+    that `chunk_size` does not divide ends with one tail block.
+    """
+    wte_c = wte.to(hidden.dtype)
+    total = count = hidden.new_zeros((), dtype=torch.float32)
+    for lo in range(0, hidden.shape[1], chunk_size):  # last: maybe a tail
+        args = (hidden[:, lo:lo + chunk_size], targets[:, lo:lo + chunk_size],
+                wte_c, ignore_index)
+        s, c = checkpoint(_chunk_nll, *args, use_reentrant=False) \
+            if torch.is_grad_enabled() else _chunk_nll(*args)
+        total, count = total + s, count + c
+    return total / torch.clamp(count, min=1.0)
 
 
 # -- decode path (serve.llm) ----------------------------------------------

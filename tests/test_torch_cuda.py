@@ -1,5 +1,7 @@
-"""ray_tpu_torch on the card: the CUDA flash-attention kernel against
-its plain version, and the engine on CUDA against the engine on the CPU.
+"""ray_tpu_torch on the card: the CUDA flash-attention kernels (forward
+and backward) against their plain versions, the engine on CUDA against
+the engine on the CPU, and a tiny training step on CUDA against the same
+step on the CPU.
 
 Every test here needs an NVIDIA GPU and `nvcc` and skips without them.
 On a machine with a card (and no JAX), run them with
@@ -12,7 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ray_tpu_torch.ops.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    BWD_KERNELS_PER_CALL, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_plain, flash_attention_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -21,6 +24,12 @@ pytestmark = pytest.mark.cuda
 # chip_smoke.TOL), then O is rounded to the input dtype
 TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float16: (4e-3, 1e-3),
        torch.float32: (1e-4, 1e-4)}
+# backward kernel vs plain, relative to each gradient's max: both build P
+# from the same lse and round dS and P where Pallas does; f32 sums run in
+# another order, so a dS element can round to the neighbouring bf16/fp16
+# value, and dq/dk/dv are rounded to the input dtype (half an ulp: 2e-3
+# in bf16, 2.4e-4 in fp16 of the max)
+BWD_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-4}
 
 
 @pytest.fixture
@@ -31,7 +40,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,t,h,h_kv,d,dtype,causal", [
+SHAPES = [
     (1, 16, 12, 12, 64, torch.bfloat16, True),
     (2, 100, 12, 4, 64, torch.bfloat16, True),     # ragged, GQA
     (1, 333, 4, 1, 128, torch.bfloat16, False),
@@ -40,7 +49,15 @@ def cuda():
     (1, 130, 2, 2, 128, torch.float32, False),
     (2, 40, 2, 2, 32, torch.bfloat16, True),       # tiny GPT head_dim
     (1, 70, 4, 2, 16, torch.float32, True),        # tiny Llama head_dim
-])
+]
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("b,t,h,h_kv,d,dtype,causal", SHAPES)
 def test_kernel_matches_plain(cuda, b, t, h, h_kv, d, dtype, causal):
     gen = torch.Generator(device=cuda).manual_seed(t)
     q, k, v = (torch.randn(b, t, n, d, generator=gen, device=cuda).to(dtype)
@@ -57,10 +74,89 @@ def test_kernel_matches_plain(cuda, b, t, h, h_kv, d, dtype, causal):
     assert float((lse - ref_lse).abs().max()) <= tol_lse
 
 
-def test_requires_grad_is_refused(cuda):
-    q = torch.randn(1, 16, 2, 64, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="training slice"):
-        flash_attention(q, q.detach(), q.detach())
+@pytest.mark.parametrize("b,t,h,h_kv,d,dtype,causal", SHAPES)
+def test_backward_kernel_matches_plain(cuda, b, t, h, h_kv, d, dtype,
+                                       causal):
+    gen = torch.Generator(device=cuda).manual_seed(t + 1)
+    q, k, v, do = (torch.randn(b, t, n, d, generator=gen,
+                               device=cuda).to(dtype)
+                   for n in (h, h_kv, h_kv, h))
+    with torch.inference_mode():
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        before = flash_attention_bwd.launches
+        got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        want = flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                         causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + BWD_KERNELS_PER_CALL
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel_err(g, w) <= BWD_TOL[dtype], (name, _rel_err(g, w))
+
+
+def test_autograd_launches_the_backward_kernel(cuda):
+    """A CUDA tensor that requires grad goes through the kernels both
+    ways: the gradients are the backward wrapper's, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn(2, 130, n, 64, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for n in (4, 2, 2, 4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(q, k, v)
+    out.backward(do)
+    assert flash_attention.launches == fwd + 1
+    assert flash_attention_bwd.launches == bwd + BWD_KERNELS_PER_CALL
+    with torch.no_grad():
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        want = flash_attention_bwd(q, k, v, o, lse, do)
+    for x, w in zip((q, k, v), want):
+        assert torch.equal(x.grad, w)
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One tiny f32 train step (flash attention, fused CE, remat, AdamW
+    3e-4 / wd 1e-4) on the card equals the same step on the CPU: loss,
+    every gradient (relative to its max) and every updated parameter.
+    Tolerance 1e-4: the f32 kernels and cuBLAS sum in another order than
+    the CPU's plain versions, and `index_add_` adds dw's -onehot rows with
+    atomics in a varying order (f32, ~1e-7 relative each)."""
+    from functools import partial
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops.fused_ce import fused_cross_entropy
+
+    cfg = gpt.GPTConfig.tiny(dtype=torch.float32)
+    params = gpt.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                             dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41),
+                         generator=torch.Generator().manual_seed(1))
+    runs = []
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    for dev in ("cpu", cuda):
+        net = gpt.GPT.from_params(
+            cfg, {n: p.clone().to(dev) for n, p in params.items()},
+            attention_fn=partial(flash_attention, causal=True),
+            trainable=True)
+        opt = torch.optim.AdamW(net.parameters(), lr=3e-4,
+                                weight_decay=1e-4)
+        t = toks.to(dev)
+        hidden, wte = net(t[:, :-1], return_hidden=True)
+        loss = fused_cross_entropy(hidden, wte, t[:, 1:])
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in net.named_parameters()}
+        opt.step()
+        runs.append((float(loss.detach()), grads,
+                     {n: p.detach().cpu() for n, p in
+                      net.named_parameters()}))
+    assert flash_attention.launches == fwd + 2 * cfg.n_layer  # remat
+    assert flash_attention_bwd.launches == \
+        bwd + BWD_KERNELS_PER_CALL * cfg.n_layer
+    (l_cpu, g_cpu, p_cpu), (l_gpu, g_gpu, p_gpu) = runs
+    assert abs(l_cpu - l_gpu) <= 1e-4 * abs(l_cpu)
+    for n in g_cpu:
+        assert _rel_err(g_gpu[n], g_cpu[n]) <= 1e-4, n
+        assert float((p_gpu[n] - p_cpu[n]).abs().max()) <= 1.5e-5, n
 
 
 @pytest.mark.parametrize("family", ["gpt", "llama"])
