@@ -9,13 +9,18 @@ a non-zero exit) on any failed check:
 
 1. device: the card's name and power limit (nvidia-smi) and versions;
 2. build: every CUDA kernel source of the port, compiled from the
-   checkout (`ray_tpu_torch/ops/csrc/*.cu`, one nvcc each, in parallel),
-   with ptxas' register and shared-memory report;
+   checkout (`ray_tpu_torch/ops/csrc/*.cu` with the shared
+   `csrc/hopper.cuh`, one nvcc each, in parallel), with each kernel
+   instance's registers, stack and spill bytes parsed from ptxas' log
+   (`ops/build/<name>.log`) and its dynamic shared memory and blocks per
+   SM from the CUDA runtime;
 3. kernels: `flash_attention_fwd` against its plain PyTorch version on
    the card at the serving shapes (GPT-2 prefill, Llama GQA, non-causal,
    the long-T regime, f32/fp16, head_dim 16/32/128) and the training
    shape, with the kernel's time, the plain version's, a PyTorch library
-   call's (a yardstick only) and the least time the card could take;
+   call's (a yardstick only), the least time the card could take, and the
+   route that ran (`sm90`: wgmma + TMA ring, bf16/fp16; `f32`: CUDA
+   cores);
 4. backward kernels: `flash_attention_bwd` (dQ and dK/dV) against its
    plain version at the training shapes (GPT-2 B=16 T=1024, Llama GQA
    12:4, long context B=4 T=4096, non-causal, ragged T, fp16 d=128, f32
@@ -47,6 +52,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -61,10 +67,12 @@ from ray_tpu_torch.models import gpt as gpt_mod
 from ray_tpu_torch.models import llama as llama_mod
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.flash_attention import (BWD_KERNELS_PER_CALL,
-                                               flash_attention,
+                                               HEAD_DIMS, flash_attention,
                                                flash_attention_bwd,
                                                flash_attention_bwd_plain,
-                                               flash_attention_plain)
+                                               flash_attention_plain,
+                                               kernel_occupancy,
+                                               kernel_routes)
 from ray_tpu_torch.ops.fused_ce import fused_cross_entropy
 from ray_tpu_torch.parallel.ring_attention import full_attention
 from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
@@ -164,9 +172,11 @@ def attention_bound(b, t, h, h_kv, d, dtype, causal):
 def attention_bwd_bound(b, t, h, h_kv, d, dtype, causal):
     """Least time (ms) the card could take for the backward: the larger
     of the bytes it must move (q, k, v, dO, lse and delta read once; dq,
-    dk, dv written once) over HBM bandwidth and its FLOPs (10 * D per
-    head and kept (q, k) pair: QK^T and dO V^T, recomputed in both
-    kernels, then dS K, dS^T Q and P^T dO) over the peak rate."""
+    dk, dv written once) over HBM bandwidth and its least FLOPs over the
+    peak rate: 10 * D per head and kept (q, k) pair, five products (QK^T,
+    dO V^T, dS K, dS^T Q, P^T dO) with S and dP computed once. The
+    two-kernel design executes 14 * D: it recomputes QK^T and dO V^T in
+    both kernels."""
     elt = torch.tensor([], dtype=dtype).element_size()
     nbytes = (3 * b * t * h * d + 4 * b * t * h_kv * d) * elt \
         + 2 * b * h * t * 4
@@ -207,9 +217,13 @@ def library_attention_bwd(q, k, v, do, causal):
     return fwd, fwd_bwd
 
 
+# the port's attention kernels as the profiler names them (the functions
+# of csrc/flash_attention_{fwd,bwd}.cu: route sm90 and route f32)
+FLASH_FWD_KERNELS = ("fwd_sm90<", "fwd_f32<")
+FLASH_BWD_KERNELS = ("dq_sm90<", "dkv_sm90<", "bwd_dq_f32<", "bwd_dkv_f32<")
 # kernel-name fragments -> the kind of work, first match wins
 KERNEL_CLASSES = (
-    ("flash attention", ("flash_fwd_kernel", "flash_bwd_")),
+    ("flash attention", FLASH_FWD_KERNELS + FLASH_BWD_KERNELS),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "gemv")),
     ("optimizer", ("multi_tensor_apply",)),
     ("reduction", ("reduce_kernel", "softmax")),
@@ -254,16 +268,22 @@ def profile_steps(fn, steps: int):
     for name, (_, us) in by_name.items():
         cls = _kernel_class(name)
         by_class[cls] = by_class.get(cls, 0.0) + us / 1e3 / steps
+    # each attention kernel function's device ms per step
+    flash = {}
+    for name, (_, us) in by_name.items():
+        key = next((k[:-1] for k in FLASH_FWD_KERNELS + FLASH_BWD_KERNELS
+                    if k in name), None)
+        if key:
+            flash[key] = flash.get(key, 0.0) + us / 1e3 / steps
     return dict(
         wall_ms=wall_us / 1e3 / steps,
         device_ms=busy_us / 1e3 / steps if busy_us else None,
         busy_share=busy_us / wall_us if busy_us else None,
         kernels_per_step=sum(n for n, _ in by_name.values()) / steps,
-        flash_ms=sum(us for name, (_, us) in by_name.items()
-                     if "flash_fwd_kernel" in name
-                     or "flash_bwd_" in name) / 1e3 / steps,
-        flash_bwd_ms=sum(us for name, (_, us) in by_name.items()
-                         if "flash_bwd_" in name) / 1e3 / steps,
+        flash_ms=sum(flash.values()),
+        flash_bwd_ms=sum(ms for k, ms in flash.items()
+                         if k + "<" in FLASH_BWD_KERNELS),
+        flash_by_kernel=flash,
         by_class=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         top=[(name[:70], us / 1e3 / steps) for name, (_, us) in top])
 
@@ -271,19 +291,86 @@ def profile_steps(fn, steps: int):
 # -- phases -----------------------------------------------------------------
 
 
+# ptxas' report of one kernel instance, e.g. "_ZN..8fwd_sm90I13__nv_bfloat16
+# Li64ELi2EE..." (the function, its element type, its head_dim and, for the
+# forward, its warpgroups)
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+# which occupancy entry of `kernel_occupancy` each kernel function has
+_OCCUPANCY_KEY = {"fwd_sm90": "fwd", "fwd_f32": "fwd", "dq_sm90": "bwd_dq",
+                  "bwd_dq_f32": "bwd_dq", "dkv_sm90": "bwd_dkv",
+                  "bwd_dkv_f32": "bwd_dkv"}
+_PTXAS_NAME = re.compile(
+    r"\d(" + "|".join(sorted(_OCCUPANCY_KEY, key=len, reverse=True))
+    + r")I(13__nv_bfloat16|6__half|f)?Li(\d+)E(?:Li(\d+)E)?E")
+_PTXAS_TYPES = {"13__nv_bfloat16": "bfloat16", "6__half": "float16",
+                "f": "float32", None: "float32"}
+
+
+def parse_ptxas(text):
+    """Each kernel instance in nvcc's `-Xptxas -v` output: function,
+    dtype, head_dim, registers, stack frame and spill bytes, and static
+    shared memory (the kernels' tiles are dynamic shared memory, which
+    ptxas does not see)."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            name = _PTXAS_NAME.search(m.group(1))
+            cur = dict(fn=name.group(1) if name else m.group(1),
+                       dtype=_PTXAS_TYPES.get(name.group(2)) if name else None,
+                       head_dim=int(name.group(3)) if name else None,
+                       warpgroups=int(name.group(4) or 1) if name else None,
+                       registers=None, stack_bytes=0, spill_store_bytes=0,
+                       spill_load_bytes=0, smem_static_bytes=0)
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem_static_bytes"] = int(m.group(1)) if m else 0
+    return rows
+
+
 def phase_build():
+    """Builds every source; returns (seconds, {source: [instance, ...]})
+    with ptxas' numbers and the runtime's dynamic shared memory and
+    blocks per SM for each kernel instance."""
     t0 = time.perf_counter()
     seconds = _build.build()
     wall = time.perf_counter() - t0
     print(f"build: {len(seconds)} source(s) compiled in {wall:.1f} s "
           f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    occupancy = {(str(dt).replace("torch.", ""), d): kernel_occupancy(dt, d)
+                 for dt in (torch.bfloat16, torch.float16, torch.float32)
+                 for d in HEAD_DIMS}
+    report = {}
     for name in _build.sources():
         log = _build.log_path(name)
-        if log.is_file():
-            for line in log.read_text(errors="replace").splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas[{name}]: {line.strip()}")
-    return wall
+        rows = parse_ptxas(log.read_text(errors="replace")) \
+            if log.is_file() else []
+        for r in rows:
+            key = _OCCUPANCY_KEY.get(r["fn"])
+            if r["warpgroups"] == 2:
+                key = f"{key}_wg2"
+            occ = occupancy.get((r["dtype"], r["head_dim"]), {}).get(key)
+            r["smem_dynamic_bytes"], r["blocks_per_sm"] = occ or (None, None)
+            print(f"  ptxas[{name}]: {r['fn']} {r['dtype']} d={r['head_dim']}"
+                  f" wg={r['warpgroups']}: {r['registers']} registers, "
+                  f"stack {r['stack_bytes']} B, spill "
+                  f"{r['spill_store_bytes']}/{r['spill_load_bytes']} B "
+                  f"(stores/loads); {r['smem_dynamic_bytes']} B dynamic "
+                  f"shared memory, {r['blocks_per_sm']} blocks/SM")
+        report[name] = rows
+    return wall, report
 
 
 GPT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
@@ -349,12 +436,13 @@ def phase_kernels(gen):
                                                  causal)
             row = dict(shape=label, b=b, t=t, h=h, h_kv=h_kv, d=d,
                        dtype=str(dtype).replace("torch.", ""),
-                       causal=causal, max_abs_err=err, lse_err=lse_err,
+                       causal=causal, route=kernel_routes(dtype)["fwd"],
+                       max_abs_err=err, lse_err=lse_err,
                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
-            print(f"kernel {label:24s} O err {err:.2e} lse err "
-                  f"{lse_err:.2e} | kernel {ms:.4f} ms plain "
+            print(f"kernel {label:24s} [{row['route']}] O err {err:.2e} "
+                  f"lse err {lse_err:.2e} | kernel {ms:.4f} ms plain "
                   f"{plain_ms:.4f} ms sdpa {lib_ms:.4f} ms | bound "
                   f"{bound_ms * 1e3:.2f} us ({bound_by}) = "
                   f"{bound_ms / ms:.1%} of roofline")
@@ -404,7 +492,7 @@ def phase_backward(gen, device="cuda"):
                                                      dtype, causal)
             row = dict(shape=label, b=b, t=t, h=h, h_kv=h_kv, d=d,
                        dtype=str(dtype).replace("torch.", ""),
-                       causal=causal,
+                       causal=causal, route=kernel_routes(dtype)["bwd"],
                        max_abs_err=max(e for e, _ in errs.values()),
                        rel_err={n: r for n, (_, r) in errs.items()},
                        ms=ms, plain_ms=plain_ms,
@@ -413,7 +501,7 @@ def phase_backward(gen, device="cuda"):
                        library_fwd_bwd_ms=lib_fwd_bwd_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
-            print(f"backward {label:28s} rel err dq/dk/dv "
+            print(f"backward {label:28s} [{row['route']}] rel err dq/dk/dv "
                   f"{'/'.join(f'{r:.1e}' for _, r in errs.values())} | "
                   f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa bwd "
                   f"{row['library_ms']:.4f} ms (fwd+bwd {lib_fwd_bwd_ms:.4f}"
@@ -518,7 +606,8 @@ def phase_train(seed=3, batch=16, seq=1024, steps=10, grad_batch=4,
         f"{prof['device_ms'] / step_ms:.1%} of the unprofiled one; flash "
         f"fwd+bwd {prof['flash_ms']:.2f} ms "
         f"({prof['flash_ms'] / prof['device_ms']:.1%} of device time; "
-        f"bwd {prof['flash_bwd_ms']:.2f} ms)")
+        f"bwd {prof['flash_bwd_ms']:.2f} ms; by kernel "
+        f"{ {k: round(v, 2) for k, v in prof['flash_by_kernel'].items()} })")
     print(f"train: losses {[round(x, 4) for x in losses]}")
     print(f"train: warm step {warm_s:.2f} s; {steps} steps in {elapsed:.3f}"
           f" s = {step_ms:.2f} ms/step, {tok_s:.0f} tok/s, MFU "
@@ -683,7 +772,26 @@ def _numbers(row):
                                       "bound_by", "library_ms")}
 
 
-def kernels_line(rows, bwd_rows, train, gpt, llama):
+FWD_DESIGN = (
+    "bf16/fp16 (route sm90): one block per (Q tile, head, batch row): two "
+    "consumer warpgroups (128 query rows) where the grid gives every SM "
+    "two blocks, else one (64 rows), + one TMA producer warp; 2-stage K/V "
+    "ring (64 keys, swizzled, mbarriers); S = QK^T wgmma m64n64k16 SS and "
+    "O += PV wgmma RS (V MN-major), S/P/O in registers, exp2 softmax with "
+    "quad shuffles; mask only on diagonal/ragged tiles; longest causal "
+    "tiles first. f32 (route f32): CUDA-core FMAs through shared memory.")
+BWD_DESIGN = (
+    "bf16/fp16 (route sm90): two kernels, each output one owner block (no "
+    "atomics, deterministic). dQ: a block per 64-row Q tile, K/V ring; "
+    "S, dP wgmma SS, P/dS in registers, dQ += dS K wgmma RS (K MN-major). "
+    "dK/dV: a block per 64-key tile, ring of Q/dO tiles (64 rows; 32 at "
+    "head_dim 128) with lse/delta; S^T, dP^T wgmma SS, dV += P^T dO and "
+    "dK += dS^T Q wgmma RS; one consumer warpgroup + one TMA producer "
+    "warp each. Executes 14 D FLOPs per pair and head (S and dP in both "
+    "kernels) against the 10 D bound. f32 (route f32): CUDA-core FMAs.")
+
+
+def kernels_line(rows, bwd_rows, train, gpt, llama, ptxas):
     """The `kernels` entries: every ported kernel with its numbers. The
     forward at the serving path's largest prefill shape (with the GPT-2
     run's launches per prefill bucket at that bucket's time) and at the
@@ -716,6 +824,8 @@ def kernels_line(rows, bwd_rows, train, gpt, llama):
         "main_path": main_path,
         "main_path_kernel_ms": sum(r["launches"] * r["ms"]
                                    for r in main_path),
+        "design": FWD_DESIGN,
+        "ptxas": ptxas.get("flash_attention_fwd", []),
         "shapes": rows,
     }, {
         "name": "flash_attention_bwd",
@@ -731,6 +841,8 @@ def kernels_line(rows, bwd_rows, train, gpt, llama):
         "max_rel_err": max(max(r["rel_err"].values()) for r in bwd_rows),
         **_numbers(bwd_row),
         "at": TRAIN_SHAPE,
+        "design": BWD_DESIGN,
+        "ptxas": ptxas.get("flash_attention_bwd", []),
         "shapes": bwd_rows,
     }]
 
@@ -747,7 +859,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind} | nvidia-smi: {card} | torch {torch.__version__}"
           f" cuda {torch.version.cuda} | python {sys.version.split()[0]}")
-    build_s = phase_build()
+    build_s, ptxas = phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase_kernels(gen)
     bwd_rows = phase_backward(gen)
@@ -764,7 +876,7 @@ def main() -> int:
         buckets=LLAMA_BUCKETS,
         prompt_lens=[9, 150, 69, 94, 1500], max_new=16, seed=2)
 
-    kernels = kernels_line(rows, bwd_rows, train, gpt, llama)
+    kernels = kernels_line(rows, bwd_rows, train, gpt, llama, ptxas)
     print(json.dumps({"build_s": build_s, "train": train,
                       "engines": [gpt, llama]}))
     print(json.dumps({"kernels": kernels}))

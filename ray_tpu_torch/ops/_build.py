@@ -3,12 +3,13 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 into its own shared library under `ops/build/` (listed in `.gitignore`),
 at first use, then loaded with `ctypes`. The library's file name carries
-a hash of its source and flags, so an edited source is rebuilt and a
-stale library is never loaded. `build()` starts one `nvcc` per source,
-all at once, and waits for them together.
+a hash of its source, of every shared header under `csrc/` (`*.cuh`) and
+of the flags (include paths among them), so an edited source or header
+is rebuilt and a stale library is never loaded. `build()` starts one
+`nvcc` per source, all at once, and waits for them together.
 
 Nothing is compiled from outside the repository's sources: the only
-headers are the CUDA toolkit's own.
+headers are `csrc/*.cuh` and the CUDA toolkit's own.
 """
 
 from __future__ import annotations
@@ -56,8 +57,12 @@ def sources() -> list:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes())
+    """Where the library of csrc/<name>.cu lives: the name carries a hash
+    of the source, every csrc/*.cuh (name and bytes) and NVCC_FLAGS."""
+    digest = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

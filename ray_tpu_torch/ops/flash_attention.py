@@ -22,8 +22,10 @@ straight in.
   before P·V, the -1e30 mask and the 1e-20 sum floor of
   `full_attention`).
 * A CUDA tensor launches the kernel or raises: there is no fallback.
-  The kernel takes bf16 and fp16 (tensor cores) and f32 (CUDA cores), at
-  head_dim 16, 32, 64 or 128.
+  The kernels take bf16 and fp16 (the Hopper route, "sm90": wgmma with
+  register accumulators fed by a TMA ring, `csrc/hopper.cuh`) and f32
+  (the "f32" route: CUDA-core FMAs), at head_dim 16, 32, 64 or 128; the C
+  entry points choose the route by dtype (`kernel_routes` says which).
 * Gradients: when grad is enabled and q, k or v requires grad,
   `flash_attention` runs through a `torch.autograd.Function` that saves
   q, k, v, O and lse; its backward is `flash_attention_bwd`, which
@@ -132,9 +134,45 @@ def _bwd_kernel_fns():
     return fns
 
 
+_ROUTES = {90: "sm90", 0: "f32"}
+
+
+def kernel_routes(dtype) -> dict:
+    """The route each CUDA entry point takes for `dtype`, as the compiled
+    libraries report it: {"fwd": "sm90" or "f32", "bwd": ...}. Builds the
+    libraries if needed (needs nvcc)."""
+    code = _DTYPE_CODE[dtype]
+    return {"fwd": _ROUTES[_build.load(KERNEL).flash_attention_fwd_route(
+                code)],
+            "bwd": _ROUTES[_build.load(BWD_KERNEL).flash_attention_bwd_route(
+                code)]}
+
+
+def kernel_occupancy(dtype, head_dim: int) -> dict:
+    """Dynamic shared memory (bytes) and resident blocks per SM of each
+    kernel that `dtype` and `head_dim` launch, from the CUDA runtime on
+    the current device: {"fwd": (smem, blocks), "bwd_dq": ...,
+    "bwd_dkv": ...}, and "fwd_wg2" for the forward's two-warpgroup
+    instance (bf16/fp16)."""
+    code = _DTYPE_CODE[dtype]
+    fwd = _build.load(KERNEL).flash_attention_fwd_occupancy
+    bwd = _build.load(BWD_KERNEL).flash_attention_bwd_occupancy
+    o = (ctypes.c_int * 4)()
+    _launch(lambda: fwd(code, head_dim, o), "fwd occupancy")
+    out = {"fwd": (o[0], o[1])}
+    if code != 0:
+        out["fwd_wg2"] = (o[2], o[3])
+    for key, which in (("bwd_dq", 0), ("bwd_dkv", 1)):
+        o = (ctypes.c_int * 2)()
+        _launch(lambda: bwd(which, code, head_dim, o), f"{key} occupancy")
+        out[key] = (o[0], o[1])
+    return out
+
+
 def _strides_ok(x):
-    """The kernels read 16-byte vectors: a contiguous last dim, 16-byte
-    alignment and strides that are multiples of a vector."""
+    """What the kernels' copies need (TMA tensor maps; the f32 kernels'
+    16-byte loads): a contiguous last dim, 16-byte alignment and strides
+    that are multiples of 16 bytes."""
     vec = 16 // x.element_size()
     return x.stride(3) == 1 and x.data_ptr() % 16 == 0 and not any(
         s % vec for s in x.stride()[:3])
