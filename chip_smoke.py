@@ -17,7 +17,8 @@ a non-zero exit) on any failed check:
 3. kernels: `flash_attention_fwd` against its plain PyTorch version on
    the card at the serving shapes (GPT-2 prefill, Llama GQA, non-causal,
    the long-T regime, f32/fp16, head_dim 16/32/128) and the training
-   shape, with the kernel's time, the plain version's, a PyTorch library
+   paths' shapes (GPT-2 B=16 T=1024, Llama GQA 12:4 B=16 T=1024, B=4
+   T=4096), with the kernel's time, the plain version's, a PyTorch library
    call's (a yardstick only), the least time the card could take, and the
    route that ran (`sm90`: wgmma + TMA ring, bf16/fp16; `f32`: CUDA
    cores);
@@ -34,6 +35,10 @@ a non-zero exit) on any failed check:
    backward twice: dQ, dK/dV), and at B=4 the loss and every parameter
    gradient against a plain-attention (`full_attention`) model on the
    same weights. Prints tokens/s, MFU, peak memory and a profiled step;
+   then the same for Llama-125M at B=16, T=1024 (`train_llama`: GQA 12:4
+   through both kernels, RoPE, SwiGLU, vocab 32000) and for GPT-2 125M
+   at B=4, T=4096 (`train_long`: the T > 2048 regime of the Pallas
+   kernels; its full_attention comparison runs at B=1);
 6. serving: GPT-2 125M through `LLMEngine` at full width (random
    weights from a seed, bf16): requests of 5-900 prompt tokens, two of
    them sharing a 64-token prefix, 32 new tokens each. Checks: every
@@ -42,7 +47,15 @@ a non-zero exit) on any failed check:
    leaked, and each request's first-token logits agree with a
    plain-attention prefill on the card. Then the same, shorter, for
    Llama-125M (grouped-query attention);
-7. the `kernels` JSON line (every ported kernel with its numbers), the
+7. speculative decoding (`engine_spec`): the GPT-2 engine phase's
+   weights and prompts through the engine with K=4, once with a
+   self-draft and once with an independent 2-layer draft. Checks: the
+   tokens equal the plain engine's (a token may differ only where the
+   plain run's top-2 logit gap is a near tie within LOGIT_ATOL; that
+   request's comparison stops there, and the stops are counted), the
+   flash kernel ran for every target and draft prefill, no page leaked
+   in either arena. Prints acceptance, rounds and tokens/s;
+8. the `kernels` JSON line (every ported kernel with its numbers), the
    card line, and last the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -51,6 +64,7 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -374,6 +388,7 @@ def phase_build():
 
 
 GPT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
+GPT_PROMPT_LENS = [5, 17, 67, 104, 200, 333, 600, 900]
 LLAMA_BUCKETS = GPT_BUCKETS + (2048,)
 KERNEL_SHAPES = [
     # (label, b, t, h, h_kv, d, dtype, causal)
@@ -389,9 +404,15 @@ KERNEL_SHAPES = [
     ("d=32 T=77", 2, 77, 2, 2, 32, torch.bfloat16, True),
     ("f32 d=16 T=50", 1, 50, 4, 2, 16, torch.float32, True),
     ("gpt2 train B=16 T=1024", 16, 1024, 12, 12, 64, torch.bfloat16, True),
+    ("llama GQA 12:4 B=16 T=1024", 16, 1024, 12, 4, 64, torch.bfloat16,
+     True),
+    ("long B=4 T=4096", 4, 4096, 12, 12, 64, torch.bfloat16, True),
 ]
 MAIN_SHAPE = "gpt2 prefill T=1024"
 TRAIN_SHAPE = "gpt2 train B=16 T=1024"
+# the shapes the train_llama and train_long paths give both kernels
+TRAIN_LLAMA_SHAPE = "llama GQA 12:4 B=16 T=1024"
+TRAIN_LONG_SHAPE = "long B=4 T=4096"
 BWD_SHAPES = [
     # (label, b, t, h, h_kv, d, dtype, causal)
     (TRAIN_SHAPE, 16, 1024, 12, 12, 64, torch.bfloat16, True),
@@ -510,14 +531,19 @@ def phase_backward(gen, device="cuda"):
     return rows
 
 
-def _train_setup(cfg, seed, batch, seq, attention_fn, device):
-    """A trainable GPT with fresh f32 master weights (from `seed`) and one
-    fixed random token batch from numpy."""
+# the families the training phases run: (module, model class)
+TRAIN_FAMILIES = {"gpt": (gpt_mod, gpt_mod.GPT),
+                  "llama": (llama_mod, llama_mod.Llama)}
+
+
+def _train_setup(family, cfg, seed, batch, seq, attention_fn, device):
+    """A trainable model of `family` with fresh f32 master weights (from
+    `seed`) and one fixed random token batch from numpy."""
+    mod, net_cls = TRAIN_FAMILIES[family]
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = gpt_mod.init_params(cfg, gen, device=device,
-                                 dtype=torch.float32)
-    model = gpt_mod.GPT.from_params(cfg, params, attention_fn=attention_fn,
-                                    trainable=True)
+    params = mod.init_params(cfg, gen, device=device, dtype=torch.float32)
+    model = net_cls.from_params(cfg, params, attention_fn=attention_fn,
+                                trainable=True)
     toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                 (batch, seq + 1))
     toks = torch.from_numpy(toks).to(device)
@@ -529,13 +555,25 @@ def _loss(model, inputs, targets):
     return fused_cross_entropy(hidden, wte, targets)
 
 
-def phase_train(seed=3, batch=16, seq=1024, steps=10, grad_batch=4,
-                cfg=None, device="cuda"):
+def phase_train(name="train", family="gpt", seed=3, batch=16, seq=1024,
+                steps=10, grad_batch=4, cfg=None, device="cuda"):
+    """Trains `cfg` (default GPT-2 125M, remat off, T=`seq`) as
+    `bench.py` does: a warm step, then `steps` timed steps, the launch
+    counts read just after them, a profiled step, and the kernel path's
+    loss and gradients at B=`grad_batch` against `full_attention`'s."""
     cfg = cfg or gpt_mod.GPTConfig.gpt2_125m(remat=False, max_seq_len=seq)
-    print(f"train: {cfg}, B={batch}, T={seq}")
-    flash = partial(flash_attention, causal=True)
-    model, inputs, targets = _train_setup(cfg, seed, batch, seq, flash,
-                                          device)
+    mod = TRAIN_FAMILIES[family][0]
+    print(f"{name}: {cfg}, B={batch}, T={seq}")
+    views = {}
+
+    def flash(q, k, v):
+        # the q/k/v views one block hands the kernels (read in place)
+        views.setdefault("strides", {n: tuple(x.stride()) for n, x in
+                                     (("q", q), ("k", k), ("v", v))})
+        return flash_attention(q, k, v, causal=True)
+
+    model, inputs, targets = _train_setup(family, cfg, seed, batch, seq,
+                                          flash, device)
     opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
                             betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=1e-4)
@@ -573,22 +611,23 @@ def phase_train(seed=3, batch=16, seq=1024, steps=10, grad_batch=4,
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     step_ms = elapsed / steps * 1e3
     tok_s = batch * seq * steps / elapsed
-    mfu = gpt_mod.flops_per_token(cfg, seq) * tok_s / PEAK_BF16_FLOPS
+    mfu = mod.flops_per_token(cfg, seq) * tok_s / PEAK_BF16_FLOPS
     prof = profile_steps(step, 1)
     del model, opt, step
     torch.cuda.empty_cache()
 
     # the kernel path's loss and gradients against full_attention's
     grads, grad_losses = {}, {}
-    for name, fn in (("flash", flash),
-                     ("full", partial(full_attention, causal=True))):
-        net, x, y = _train_setup(cfg, seed + 1, grad_batch, seq, fn,
+    for key, fn in (("flash", flash),
+                    ("full", partial(full_attention, causal=True))):
+        net, x, y = _train_setup(family, cfg, seed + 1, grad_batch, seq, fn,
                                  device)
         loss = _loss(net, x, y)
         loss.backward()
-        grad_losses[name] = float(loss.detach())
-        grads[name] = {n: p.grad for n, p in net.named_parameters()}
-        del net
+        grad_losses[key] = float(loss.detach())
+        grads[key] = {n: p.grad for n, p in net.named_parameters()}
+        del net, loss
+        torch.cuda.empty_cache()
     worst_name, worst = max(
         ((n, _rel_err(grads["flash"][n], grads["full"][n]))
          for n in grads["full"]), key=lambda kv: kv[1])
@@ -608,41 +647,81 @@ def phase_train(seed=3, batch=16, seq=1024, steps=10, grad_batch=4,
         f"({prof['flash_ms'] / prof['device_ms']:.1%} of device time; "
         f"bwd {prof['flash_bwd_ms']:.2f} ms; by kernel "
         f"{ {k: round(v, 2) for k, v in prof['flash_by_kernel'].items()} })")
-    print(f"train: losses {[round(x, 4) for x in losses]}")
-    print(f"train: warm step {warm_s:.2f} s; {steps} steps in {elapsed:.3f}"
-          f" s = {step_ms:.2f} ms/step, {tok_s:.0f} tok/s, MFU "
+    print(f"{name}: losses {[round(x, 4) for x in losses]}")
+    print(f"{name}: warm step {warm_s:.2f} s; {steps} steps in "
+          f"{elapsed:.3f} s = {step_ms:.2f} ms/step, {tok_s:.0f} tok/s, MFU "
           f"{mfu:.1%} of 989 TFLOP/s bf16 (card: {card_line()}); peak "
           f"memory {peak_gib:.2f} GiB; launches fwd {fwd_launches} bwd "
-          f"{bwd_launches}")
-    print(f"train: profile: {prof['wall_ms']:.2f} ms/step wall, {busy}, "
+          f"{bwd_launches}; q/k/v strides {views['strides']}")
+    print(f"{name}: profile: {prof['wall_ms']:.2f} ms/step wall, {busy}, "
           f"{prof['kernels_per_step']:.0f} kernels/step; device ms by kind "
           f"{ {k: round(v, 2) for k, v in prof['by_class'].items()} }; top "
           f"{prof['top']}")
-    print(f"train: B={grad_batch} kernel path vs full_attention: loss "
+    print(f"{name}: B={grad_batch} kernel path vs full_attention: loss "
           f"{grad_losses['flash']:.5f} vs {grad_losses['full']:.5f} "
           f"(rel {loss_rel:.1e}); worst gradient {worst_name} "
           f"{worst:.2e} of its max (tol {GRAD_RTOL})")
-    return dict(model="gpt2_125m", batch=batch, seq=seq, steps=steps,
-                remat=cfg.remat, losses=losses, warm_s=warm_s,
-                step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu,
-                peak_mem_gib=peak_gib, fwd_launches=fwd_launches,
-                bwd_launches=bwd_launches, profile=prof,
+    return dict(phase=name, family=family, n_layer=cfg.n_layer,
+                batch=batch, seq=seq, steps=steps, remat=cfg.remat,
+                losses=losses, warm_s=warm_s, step_ms=step_ms,
+                tokens_per_s=tok_s, mfu=mfu, peak_mem_gib=peak_gib,
+                fwd_launches=fwd_launches, bwd_launches=bwd_launches,
+                qkv_strides=views["strides"], profile=prof,
                 grad_check=dict(batch=grad_batch, losses=grad_losses,
                                 loss_rel=loss_rel, worst=worst,
                                 worst_param=worst_name, tol=GRAD_RTOL))
 
 
+def _top2_gap(logits):
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
 class _SmokeEngine(LLMEngine):
     """The engine, keeping each request's first-token logits for the
-    plain-attention check."""
+    plain-attention check and, with `record_gaps`, the top-2 logit gap
+    behind each token it emits (the near ties of `phase_engine_spec`)."""
 
-    def __init__(self, *a, **kw):
+    def __init__(self, *a, record_gaps=False, **kw):
         super().__init__(*a, **kw)
         self.first_logits = {}
+        self.record_gaps = record_gaps
+        self.gaps = {}  # request id -> [gap of token 0, token 1, ...]
 
     def _emit_first(self, seq, next_logits_row):
         self.first_logits[seq.req.id] = next_logits_row.float().cpu()
+        if self.record_gaps:
+            self.gaps[seq.req.id] = [float(_top2_gap(next_logits_row))]
         return super()._emit_first(seq, next_logits_row)
+
+    def _decode(self, *a, **kw):
+        out = super()._decode(*a, **kw)
+        if self.record_gaps:
+            self._step_gaps = _top2_gap(out[0]).tolist()
+        return out
+
+    def _decode_once(self):
+        runs = list(self._running)
+        n = super()._decode_once()
+        if self.record_gaps:
+            for seq, gap in zip(runs, self._step_gaps):
+                self.gaps[seq.req.id].append(gap)
+        return n
+
+
+def _prompts(cfg, prompt_lens, seed):
+    """The engine phases' prompts: random tokens from numpy, the 3rd and
+    4th sharing a 64-token prefix (the prefix-cache chunk path runs)."""
+    rng = np.random.default_rng(seed)
+    shared = list(rng.integers(1, cfg.vocab_size, 64))
+    prompts = []
+    for i, n in enumerate(prompt_lens):
+        if i in (2, 3):
+            prompts.append(shared + list(rng.integers(1, cfg.vocab_size,
+                                                      n - 64)))
+        else:
+            prompts.append(list(rng.integers(1, cfg.vocab_size, n)))
+    return [[int(x) for x in p] for p in prompts]
 
 
 def phase_engine(name, mod, cfg, net_cls, buckets, prompt_lens, max_new,
@@ -660,16 +739,7 @@ def phase_engine(name, mod, cfg, net_cls, buckets, prompt_lens, max_new,
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
 
-    rng = np.random.default_rng(seed)
-    shared = list(rng.integers(1, cfg.vocab_size, 64))
-    prompts = []
-    for i, n in enumerate(prompt_lens):
-        if i in (2, 3):  # two requests share a 64-token prefix
-            prompts.append(shared + list(rng.integers(1, cfg.vocab_size,
-                                                      n - 64)))
-        else:
-            prompts.append(list(rng.integers(1, cfg.vocab_size, n)))
-    prompts = [[int(x) for x in p] for p in prompts]
+    prompts = _prompts(cfg, prompt_lens, seed)
 
     # the main path: counts at 0 just before, read just after
     flash_attention.launches = 0
@@ -767,6 +837,121 @@ def phase_engine(name, mod, cfg, net_cls, buckets, prompt_lens, max_new,
     return row
 
 
+SPEC_K = 4
+
+
+def _serve(eng, prompts, max_new):
+    """Serves `prompts` through the engine's pump thread, as a replica
+    would, with the launch counts set to 0 just before; returns (requests,
+    outputs, seconds, forward kernel launches)."""
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    eng.start()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    outs = [r.result(timeout=600) for r in reqs]
+    gen_s = time.perf_counter() - t0
+    eng.quiesce()
+    eng.stop()
+    assert flash_attention_bwd.launches == 0  # serving runs no backward
+    for r, out in zip(reqs, outs):
+        assert r.finish_reason == "length" and len(out) == max_new, (
+            r.id, r.finish_reason, len(out))
+    return reqs, outs, gen_s, flash_attention.launches
+
+
+def phase_engine_spec(cfg, buckets, prompt_lens, max_new, seed,
+                      device="cuda"):
+    """GPT-2 125M with speculative decoding (K = `SPEC_K`), once with a
+    self-draft and once with an independent 2-layer draft (fresh weights
+    from another seed), against the plain engine's greedy tokens on the
+    same weights and prompts. bf16 verify (a chunk step) and bf16 decode
+    may round a near tie apart: a token that differs passes only where
+    the plain run's top-2 logit gap at that position is within
+    LOGIT_ATOL, and that request's comparison stops there."""
+    print(f"engine_spec: {cfg}, K={SPEC_K}")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = gpt_mod.init_params(cfg, gen, device=device)
+    prompts = _prompts(cfg, prompt_lens, seed)
+    ecfg = dict(batch_buckets=(1, 2, 4, 8), prefill_buckets=buckets)
+    plain = _SmokeEngine(model="gpt", model_cfg=cfg, params=params,
+                         device=device, engine_config=EngineConfig(**ecfg),
+                         record_gaps=True)
+    plain.warmup()
+    reqs, want, plain_s, _ = _serve(plain, prompts, max_new)
+    gaps = [plain.gaps[r.id] for r in reqs]
+    assert plain.shutdown() == 0
+    n_tok = len(prompts) * max_new
+    print(f"engine_spec: plain {n_tok} tokens in {plain_s:.3f} s = "
+          f"{n_tok / plain_s:.1f} tok/s")
+    rows = []
+    for label, draft_cfg in (("self", None),
+                             ("independent 2-layer",
+                              dataclasses.replace(cfg, n_layer=2))):
+        # draft_cfg alone: the engine draws the draft from seed + 1 of
+        # its own seed, another seed than the target's
+        eng = LLMEngine(model="gpt", model_cfg=cfg, params=params,
+                        device=device, seed=seed + 10, draft_cfg=draft_cfg,
+                        engine_config=EngineConfig(spec_k=SPEC_K, **ecfg))
+        eng.warmup()
+        torch.cuda.synchronize()
+        reqs, outs, gen_s, launches = _serve(eng, prompts, max_new)
+        m = eng.metrics()
+        calls = m["bucket_calls"]
+        prefills = sum(c for k, c in calls.items()
+                       if k.startswith("prefill:"))
+        d_prefills = sum(c for k, c in calls.items()
+                         if k.startswith("draft_prefill:"))
+        d_layers = eng.draft_cfg.n_layer
+        assert d_prefills == len(prompts), calls  # every prompt fits
+        assert launches == cfg.n_layer * prefills + d_layers * d_prefills, (
+            launches, calls)
+        ties, compared = [], 0
+        for i, (got, w, g) in enumerate(zip(outs, want, gaps)):
+            for j, (a, b) in enumerate(zip(got, w)):
+                if a != b:
+                    assert g[j] <= LOGIT_ATOL, (
+                        f"engine_spec[{label}]: request {i} token {j} is "
+                        f"{a}, plain greedy's {b} with a top-2 gap of "
+                        f"{g[j]} (> {LOGIT_ATOL}: not a near tie)")
+                    ties.append(dict(request=i, token=j, gap=g[j]))
+                    break
+                compared += 1
+        stops = len(ties)
+        tie_list = [(t["request"], t["token"], round(t["gap"], 4))
+                    for t in ties]
+        leaked = eng.shutdown()
+        assert leaked == 0, f"{leaked} KV pages leaked"
+        accept = m["spec_accepted"] / m["spec_proposed"]
+        if label == "self":
+            # the draft is the target: only near ties reject
+            assert accept > 0.5, m
+        row = dict(draft=label, draft_layers=d_layers, k=SPEC_K,
+                   requests=len(reqs), new_tokens=n_tok, gen_s=gen_s,
+                   tokens_per_s=n_tok / gen_s, plain_tokens_per_s=n_tok
+                   / plain_s, spec_rounds=m["spec_rounds"],
+                   spec_proposed=m["spec_proposed"],
+                   spec_accepted=m["spec_accepted"], acceptance=accept,
+                   # decode tokens per lane and round (<= K + 1)
+                   tokens_per_lane_round=(n_tok - len(reqs)) * SPEC_K
+                   / m["spec_proposed"],
+                   flash_launches=launches,
+                   draft_prefill_launches=d_layers * d_prefills,
+                   compared_tokens=compared, near_tie_stops=stops,
+                   near_ties=ties,
+                   bucket_calls=calls, leaked_pages=leaked)
+        rows.append(row)
+        print(f"engine_spec[{label}]: {n_tok} tokens in {gen_s:.3f} s = "
+              f"{n_tok / gen_s:.1f} tok/s (plain {n_tok / plain_s:.1f}); "
+              f"{m['spec_rounds']} rounds, accepted {m['spec_accepted']} of "
+              f"{m['spec_proposed']} proposals = {accept:.1%}; flash "
+              f"launches {launches} (draft prefill {d_layers} x "
+              f"{d_prefills}); tokens equal to plain greedy: {compared} "
+              f"compared, {stops} request(s) stopped at a near tie "
+              f"(request, token, gap): {tie_list}")
+    return rows
+
+
 def _numbers(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}
@@ -791,16 +976,30 @@ BWD_DESIGN = (
     "kernels) against the 10 D bound. f32 (route f32): CUDA-core FMAs.")
 
 
-def kernels_line(rows, bwd_rows, train, gpt, llama, ptxas):
+def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
+                 spec, ptxas):
     """The `kernels` entries: every ported kernel with its numbers. The
     forward at the serving path's largest prefill shape (with the GPT-2
-    run's launches per prefill bucket at that bucket's time) and at the
-    training shape; the backward at the training shape. `launches` are
-    the GPT-2 serving run's (forward) and the training run's (backward);
-    `launches_*` the other main paths'."""
-    main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE)
-    train_row = next(r for r in rows if r["shape"] == TRAIN_SHAPE)
-    bwd_row = next(r for r in bwd_rows if r["shape"] == TRAIN_SHAPE)
+    run's launches per prefill bucket at that bucket's time), the
+    backward at the GPT-2 training shape, and both at each training
+    path's shape (`training_paths`). `launches` are
+    the GPT-2 serving run's (forward) and the GPT-2 training run's
+    (backward); `launches_*` the other main paths' (`engine_spec`: both
+    spec runs, and of them the draft prefills)."""
+    def at(table, shape):
+        return next(r for r in table if r["shape"] == shape)
+
+    main_row, bwd_row = at(rows, MAIN_SHAPE), at(bwd_rows, TRAIN_SHAPE)
+
+    def per_path(table, key):
+        # each training path's launches with the times at its shape
+        return {name: dict(at=shape, launches=path[key],
+                           **_numbers(at(table, shape)))
+                for name, shape, path in (
+                    ("train", TRAIN_SHAPE, train),
+                    ("train_llama", TRAIN_LLAMA_SHAPE, train_llama),
+                    ("train_long", TRAIN_LONG_SHAPE, train_long))}
+
     # the GPT-2 run's launches per prefill bucket, at that bucket's time
     by_t = {r["t"]: r for r in rows if r["shape"].startswith("gpt2 prefill")}
     main_path = [dict(t=t, launches=gpt["n_layer"] * n, ms=by_t[t]["ms"],
@@ -816,11 +1015,15 @@ def kernels_line(rows, bwd_rows, train, gpt, llama, ptxas):
         "launches": gpt["flash_launches"],
         "launches_llama": llama["flash_launches"],
         "launches_train": train["fwd_launches"],
+        "launches_train_llama": train_llama["fwd_launches"],
+        "launches_train_long": train_long["fwd_launches"],
+        "launches_engine_spec": sum(r["flash_launches"] for r in spec),
+        "launches_engine_spec_draft_prefill": sum(
+            r["draft_prefill_launches"] for r in spec),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **_numbers(main_row),
         "at": MAIN_SHAPE,
-        "train": dict(at=TRAIN_SHAPE, launches=train["fwd_launches"],
-                      **_numbers(train_row)),
+        "training_paths": per_path(rows, "fwd_launches"),
         "main_path": main_path,
         "main_path_kernel_ms": sum(r["launches"] * r["ms"]
                                    for r in main_path),
@@ -836,11 +1039,14 @@ def kernels_line(rows, bwd_rows, train, gpt, llama, ptxas):
                     "288 (_dq_kernel); ray_tpu/ops/flash_attention.py:326 "
                     "(_dkv_kernel)",
         "launches": train["bwd_launches"],
+        "launches_train_llama": train_llama["bwd_launches"],
+        "launches_train_long": train_long["bwd_launches"],
         "kernels_per_call": BWD_KERNELS_PER_CALL,
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in bwd_rows),
         **_numbers(bwd_row),
         "at": TRAIN_SHAPE,
+        "training_paths": per_path(bwd_rows, "bwd_launches"),
         "design": BWD_DESIGN,
         "ptxas": ptxas.get("flash_attention_bwd", []),
         "shapes": bwd_rows,
@@ -864,21 +1070,33 @@ def main() -> int:
     rows = phase_kernels(gen)
     bwd_rows = phase_backward(gen)
     train = phase_train()
+    # bench.py's Llama run (`bench_llama_tokens_per_sec`): GQA 12:4
+    train_llama = phase_train(
+        "train_llama", "llama",
+        cfg=llama_mod.LlamaConfig.llama_125m(remat=False, max_seq_len=1024))
+    # bench.py's long-context run (`bench_gpt2_long_context`); the
+    # full_attention comparison keeps [B, H, T, T] scores per layer, so it
+    # runs at B=1
+    train_long = phase_train("train_long", batch=4, seq=4096, grad_batch=1)
 
     gpt = phase_engine(
         "gpt", gpt_mod, gpt_mod.GPTConfig.gpt2_125m(), gpt_mod.GPT,
-        buckets=GPT_BUCKETS,
-        prompt_lens=[5, 17, 67, 104, 200, 333, 600, 900], max_new=32,
+        buckets=GPT_BUCKETS, prompt_lens=GPT_PROMPT_LENS, max_new=32,
         seed=1)
     llama = phase_engine(
         "llama", llama_mod, llama_mod.LlamaConfig.llama_125m(),
         llama_mod.Llama,
         buckets=LLAMA_BUCKETS,
         prompt_lens=[9, 150, 69, 94, 1500], max_new=16, seed=2)
+    # the GPT-2 engine phase's weights, prompts and lengths, speculating
+    spec = phase_engine_spec(gpt_mod.GPTConfig.gpt2_125m(), GPT_BUCKETS,
+                             GPT_PROMPT_LENS, max_new=32, seed=1)
 
-    kernels = kernels_line(rows, bwd_rows, train, gpt, llama, ptxas)
+    kernels = kernels_line(rows, bwd_rows, train, train_llama, train_long,
+                           gpt, llama, spec, ptxas)
     print(json.dumps({"build_s": build_s, "train": train,
-                      "engines": [gpt, llama]}))
+                      "train_llama": train_llama, "train_long": train_long,
+                      "engines": [gpt, llama], "engine_spec": spec}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -97,21 +97,23 @@ class LayerNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """`flax.linen.Dense(dtype=dtype)`: y = x W^T + b with the weight
-    ([out, in]) and bias cast to `dtype` at use. Weights stored in `dtype`
-    (serving) make the cast a no-op; f32 master weights (training) get
-    their gradients through it in f32."""
+    """`flax.linen.Dense(dtype=dtype, use_bias=bias)`: y = x W^T (+ b)
+    with the weight ([out, in]) and bias cast to `dtype` at use. Weights
+    stored in `dtype` (serving) make the cast a no-op; f32 master weights
+    (training) get their gradients through it in f32."""
 
-    def __init__(self, features_in: int, features_out: int, dtype):
+    def __init__(self, features_in: int, features_out: int, dtype,
+                 bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(features_out, features_in, dtype=dtype))
-        self.bias = nn.Parameter(torch.empty(features_out, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(features_out, dtype=dtype)) \
+            if bias else None
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x, self.weight.to(self.dtype), bias)
 
 
 def dropout(x, rate: float, keep):

@@ -1,7 +1,7 @@
 """Llama-family decoder-only transformer in PyTorch.
 
-Port of `ray_tpu/models/llama.py` (everything but training): RMSNorm,
-rotary embeddings, SwiGLU MLP and grouped-query attention, plus the
+Port of `ray_tpu/models/llama.py`: RMSNorm, rotary embeddings, SwiGLU
+MLP and grouped-query attention, per-block remat for training, plus the
 decode path shared with GPT (`paged_attend`, `paged_attend_chunk`,
 `chunk_valid_mask`).
 
@@ -14,8 +14,16 @@ Numerics follow the Flax model:
 - the fused QKV projection splits at `n_head*hd` and
   `(n_head+n_kv_head)*hd`; K/V keep their `n_kv_head` heads (each
   attention function handles the grouping itself).
-Storage dtypes and parameter names follow `gpt.py` (projections in
-`cfg.dtype`, norm scales in `cfg.param_dtype`, names from the Flax tree).
+Storage dtypes and parameter names follow `gpt.py`: the projections are
+GPT's `Dense` without bias, which casts its weight to `cfg.dtype` at use,
+and `wte` is cast where it is read, so serving weights stored in
+`cfg.dtype` and f32 master weights for training
+(`init_params(..., dtype=torch.float32)` or
+`convert.llama_params_from_jax(..., dtype=torch.float32)`) go through one
+module; norm scales stay in `cfg.param_dtype`; names come from the Flax
+tree. With `cfg.remat` each block is recomputed in the backward
+(`torch.utils.checkpoint`) whenever grad is enabled, as the Flax model
+wraps it in `nn.remat`.
 """
 
 from __future__ import annotations
@@ -28,9 +36,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.models.gpt import (_from_params, _next_logits,
+from ray_tpu_torch.models.gpt import (Dense, _from_params, _next_logits,
                                       _norm_params, _normal, unboxed_params)
 from ray_tpu_torch.parallel.ring_attention import NEG_INF, full_attention
 
@@ -55,6 +64,7 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    remat: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -140,15 +150,13 @@ class LlamaBlock(nn.Module):
         self.attention_fn = attention_fn
         norm = partial(RMSNorm, d, cfg.norm_eps, cfg.dtype, cfg.param_dtype)
         self.attn_norm = norm()
+        dense = partial(Dense, dtype=cfg.dtype, bias=False)
         # fused QKV: n_head q-heads + 2 * n_kv_head kv-heads in one matmul
-        self.attn_qkv = nn.Linear(d, (cfg.n_head + 2 * cfg.n_kv_head) * hd,
-                                  bias=False, dtype=cfg.dtype)
-        self.attn_out = nn.Linear(d, d, bias=False, dtype=cfg.dtype)
+        self.attn_qkv = dense(d, (cfg.n_head + 2 * cfg.n_kv_head) * hd)
+        self.attn_out = dense(d, d)
         self.mlp_norm = norm()
-        self.mlp_gate_up = nn.Linear(d, 2 * cfg.ffn_dim, bias=False,
-                                     dtype=cfg.dtype)
-        self.mlp_down = nn.Linear(cfg.ffn_dim, d, bias=False,
-                                  dtype=cfg.dtype)
+        self.mlp_gate_up = dense(d, 2 * cfg.ffn_dim)
+        self.mlp_down = dense(cfg.ffn_dim, d)
 
     def project_qkv(self, x):
         """attn_norm + the fused QKV projection, split into q
@@ -185,6 +193,12 @@ class LlamaBlock(nn.Module):
 
 
 class Llama(nn.Module):
+    """Decoder-only LM with a tied head, as `GPT`: `attention_fn` swaps
+    the attention of every block, `return_hidden=True` returns
+    `(hidden [B, T, D], wte in cfg.dtype)` for `fused_cross_entropy`, and
+    `wte` keeps the dtype `from_params` gave it (f32 master weights are
+    cast at use)."""
+
     def __init__(self, config: LlamaConfig,
                  attention_fn: Optional[Callable] = None):
         super().__init__()
@@ -216,10 +230,14 @@ class Llama(nn.Module):
     def forward(self, tokens, return_hidden: bool = False,
                 kv_sink: Optional[list] = None):
         cfg = self.config
+        remat = cfg.remat and torch.is_grad_enabled() and kv_sink is None
         x = self.wte.to(cfg.dtype)[tokens]
         cos, sin = self.rope_tables(tokens.device)
         for blk in self.blocks():
-            x = blk(x, cos, sin, kv_sink)
+            if remat:
+                x = checkpoint(blk, x, cos, sin, None, use_reentrant=False)
+            else:
+                x = blk(x, cos, sin, kv_sink)
         x = self.final_norm(x)
         if return_hidden:
             return x, self.wte.to(cfg.dtype)
@@ -228,12 +246,15 @@ class Llama(nn.Module):
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device=None) -> Dict[str, torch.Tensor]:
+                device=None, dtype: Optional[torch.dtype] = None
+                ) -> Dict[str, torch.Tensor]:
     """Fresh weights with the Flax model's init distributions (Dense
-    kernels and `wte` normal(0.02), norm scales one); values differ from
+    kernels and `wte` normal(0.02), norm scales one). Projections and
+    `wte` are in `dtype` (default `cfg.dtype`: serving;
+    `torch.float32` for training's master weights); values differ from
     JAX's for the same seed, as in `gpt.init_params`."""
     device = resolve_device(device)
-    d, hd, dt = cfg.d_model, cfg.head_dim, cfg.dtype
+    d, hd, dt = cfg.d_model, cfg.head_dim, dtype or cfg.dtype
     normal = partial(_normal, generator=generator, device=device, dtype=dt)
     p = {"wte": normal((cfg.vocab_size, d), 0.02)}
     for i in range(cfg.n_layer):

@@ -20,14 +20,24 @@ model the whole arena plus per-sequence page-table rows, and the new
 token's K/V is written into the sequence's tail page after the step.
 Greedy (argmax) sampling keeps generation deterministic.
 
+Speculative decoding (`EngineConfig.spec_k = K > 0`, greedy case): a
+draft model of the same family (the target itself unless `draft_cfg` /
+`draft_params` name another) keeps its own `PagedKVCache`, prefills each
+prompt after the target's first token, and proposes K tokens per round;
+the target scores all K+1 positions in one chunk forward (the verify
+window) and the longest matching prefix plus the target's next token is
+emitted, so the tokens are exactly plain greedy's. Where the JAX engine
+copies the draft's [B, V] logits to the host at every draft step, the
+port takes the argmax on the device and copies only the [B] token ids
+(and [B, K+1] ids after verify).
+
 All device work runs under `torch.inference_mode()` on the engine's one
 device, on the current stream, from whichever thread steps the engine
 (the caller's, or the pump thread after `start()`).
 
-Not ported yet: speculative decoding (`EngineConfig.spec_k > 0` raises
-NotImplementedError), the native dispatch-ring intake, the request
-recorder / tracing / step-profiler / health-probe hooks with the
-`/metrics` text, and the shared-memory arena (`store=`).
+Not ported yet: the native dispatch-ring intake, the request recorder /
+tracing / step-profiler / health-probe hooks with the `/metrics` text,
+and the shared-memory arena (`store=`).
 """
 
 from __future__ import annotations
@@ -80,8 +90,7 @@ class EngineConfig:
     # chunked prefill window (RAY_TPU_LLM_PREFILL_CHUNK, 0 = off: long
     # prompts then stay capped at the largest prefill bucket)
     prefill_chunk: int = -1
-    # speculative decoding draft length K (RAY_TPU_LLM_SPEC_K, 0 = off;
-    # not ported yet: > 0 raises)
+    # speculative decoding draft length K (RAY_TPU_LLM_SPEC_K, 0 = off)
     spec_k: int = -1
 
     def resolved(self, max_seq_len: int) -> "EngineConfig":
@@ -187,19 +196,27 @@ class Request:
 class _Sequence:
     """A running request's decode state.
 
-    `pos` is the number of tokens in the KV cache (= prompt + generated
-    - 1 in steady state: the newest token rides as the next dispatch's
-    input). `prefilled` is the chunked-prefill frontier (it starts at
-    the prefix-cache hit length)."""
+    `pos` is the number of tokens in the TARGET KV cache (= prompt +
+    generated - 1 in steady state: the newest token rides as the next
+    dispatch's input). `prefilled` is the chunked-prefill frontier (it
+    starts at the prefix-cache hit length). `d_pages`/`d_prefilled`/
+    `d_pos` are the draft model's mirror state when speculative decoding
+    is on: `d_pos` is the draft cache frontier, which lags `pos` by at
+    most one token after a fully-accepted round (the next round's
+    catch-up closes the gap)."""
 
-    __slots__ = ("req", "pages", "pos", "prefilled")
+    __slots__ = ("req", "pages", "pos", "prefilled", "d_pages",
+                 "d_prefilled", "d_pos")
 
     def __init__(self, req: Request, pages: List[int], pos: int,
-                 cached: int = 0):
+                 cached: int = 0, d_pages: Optional[List[int]] = None):
         self.req = req
         self.pages = pages
         self.pos = pos  # tokens already written to the KV cache
         self.prefilled = pos or cached
+        self.d_pages = d_pages
+        self.d_prefilled = 0
+        self.d_pos = 0
 
     @property
     def last_token(self) -> int:
@@ -219,24 +236,27 @@ class LLMEngine:
     dict (`models.<family>.init_params` or `models.convert`); None draws
     fresh weights from `seed`. `device` defaults to "cuda" and raises
     without a GPU; pass "cpu" to run on the host explicitly.
+
+    With `spec_k > 0` the draft model is the target itself (sharing its
+    tensors) unless `draft_params` (with `draft_cfg`, default the
+    target's config) names another; `draft_cfg` alone draws fresh draft
+    weights from `seed + 1`. The draft is of the same family, with the
+    target's vocabulary and `max_seq_len`.
     """
 
     def __init__(self, model: str = "llama", model_cfg=None, params=None,
                  engine_config: Optional[EngineConfig] = None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, draft_cfg=None,
+                 draft_params=None):
         if model == "llama":
             from ray_tpu_torch.models import llama as mod
             self.model_cfg = model_cfg or mod.LlamaConfig.tiny(
                 dtype=torch.float32)
-            n_kv_head = self.model_cfg.n_kv_head
-            head_dim = self.model_cfg.head_dim
             net_cls = mod.Llama
         elif model == "gpt":
             from ray_tpu_torch.models import gpt as mod
             self.model_cfg = model_cfg or mod.GPTConfig.tiny(
                 dtype=torch.float32)
-            n_kv_head = self.model_cfg.n_head
-            head_dim = self.model_cfg.d_model // self.model_cfg.n_head
             net_cls = mod.GPT
         else:
             raise ValueError(f"unknown model family {model!r}")
@@ -245,9 +265,6 @@ class LLMEngine:
         self._mod = mod
         cfg = (engine_config or EngineConfig()).resolved(
             self.model_cfg.max_seq_len)
-        if cfg.spec_k > 0:
-            raise NotImplementedError(
-                "speculative decoding (spec_k > 0) is not ported yet")
         self.config = cfg
         self.max_pages_per_seq = -(-self.model_cfg.max_seq_len
                                    // cfg.block_size)
@@ -259,15 +276,42 @@ class LLMEngine:
         # prefill runs the hand-written flash-attention kernel
         self.net = net_cls.from_params(self.model_cfg, params,
                                        attention_fn=flash_attention)
-
-        self.kv = PagedKVCache(
-            cfg.num_pages, self.model_cfg.n_layer, cfg.block_size,
-            n_kv_head, head_dim, dtype=self.model_cfg.dtype,
-            device=self.device)
+        self.kv = self._arena(self.model_cfg, cfg.num_pages)
         self.prefix = PrefixCache(self.kv) if cfg.prefix_cache else None
         # one chunk width (B=1, C=_chunk_size) covers both chunked
         # prefill windows and prefix-cache-hit suffixes
         self._chunk_size = cfg.prefill_chunk or max(cfg.prefill_buckets)
+
+        # speculative decoding: the draft's own net and KV arena
+        self.draft_cfg = self.draft_params = self.d_net = None
+        self.kv_d: Optional[PagedKVCache] = None
+        if cfg.spec_k > 0:
+            self.draft_cfg = draft_cfg or self.model_cfg
+            for field in ("vocab_size", "max_seq_len"):
+                if getattr(self.draft_cfg, field) != \
+                        getattr(self.model_cfg, field):
+                    raise ValueError(
+                        f"draft {field} {getattr(self.draft_cfg, field)} "
+                        f"!= the target's {getattr(self.model_cfg, field)}")
+            if draft_params is None and draft_cfg is None:
+                draft_params = params  # self-draft: the target's tensors
+            elif draft_params is None:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    seed + 1)
+                draft_params = mod.init_params(self.draft_cfg, gen,
+                                               self.device)
+            self.draft_params = draft_params
+            self.d_net = self.net if draft_params is params and \
+                self.draft_cfg == self.model_cfg else net_cls.from_params(
+                    self.draft_cfg, draft_params,
+                    attention_fn=flash_attention)
+            # a fully-accepted round leaves the draft frontier K tokens
+            # past the target's, so its reservation is K tokens wider
+            self.max_pages_per_seq_d = -(-(self.model_cfg.max_seq_len
+                                           + cfg.spec_k)
+                                         // cfg.block_size)
+            self.kv_d = self._arena(
+                self.draft_cfg, cfg.max_running * self.max_pages_per_seq_d)
 
         self._waiting: List[Request] = []
         self._prefilling: List[_Sequence] = []
@@ -282,34 +326,49 @@ class LLMEngine:
             "requests_timed_out": 0,
             "tokens_generated": 0, "prefill_steps": 0,
             "decode_steps": 0, "prefill_ms": 0.0, "decode_ms": 0.0,
-            "chunk_steps": 0,
+            "chunk_steps": 0, "spec_rounds": 0, "spec_proposed": 0,
+            "spec_accepted": 0,
         }
         # per-(kind, bucket) step-function calls
         self.bucket_calls: Dict[Tuple[str, int], int] = {}
         # per-tenant rows: shed decisions and throughput per job label
         self.tenant_counters: Dict[str, Dict[str, float]] = {}
 
+    def _arena(self, model_cfg, num_pages: int) -> PagedKVCache:
+        kvh = getattr(model_cfg, "n_kv_head", model_cfg.n_head)
+        return PagedKVCache(
+            num_pages, model_cfg.n_layer, self.config.block_size, kvh,
+            model_cfg.d_model // model_cfg.n_head, dtype=model_cfg.dtype,
+            device=self.device)
+
     # -- step functions ---------------------------------------------------
+    # `draft=True` runs the draft model on its own arena; the verify
+    # window is the target's `_chunk` at width K+1.
 
     def _ints(self, values) -> torch.Tensor:
         return torch.as_tensor(values, dtype=torch.long).to(self.device)
 
-    def _prefill(self, tokens, true_len):
-        return self._mod.prefill_step(self.net, self.model_cfg,
-                                      self._ints(tokens),
+    def _model(self, draft: bool):
+        if draft:
+            return self.d_net, self.draft_cfg, self.kv_d
+        return self.net, self.model_cfg, self.kv
+
+    def _prefill(self, tokens, true_len, draft: bool = False):
+        net, cfg, _ = self._model(draft)
+        return self._mod.prefill_step(net, cfg, self._ints(tokens),
                                       self._ints(true_len))
 
-    def _decode(self, tokens, positions, page_table):
+    def _decode(self, tokens, positions, page_table, draft: bool = False):
+        net, cfg, kv = self._model(draft)
         return self._mod.decode_step(
-            self.net, self.model_cfg, self._ints(tokens),
-            self._ints(positions), self.kv.k_pages, self.kv.v_pages,
-            self._ints(page_table))
+            net, cfg, self._ints(tokens), self._ints(positions),
+            kv.k_pages, kv.v_pages, self._ints(page_table))
 
-    def _chunk(self, tokens, start, page_table):
+    def _chunk(self, tokens, start, page_table, draft: bool = False):
+        net, cfg, kv = self._model(draft)
         return self._mod.chunk_step(
-            self.net, self.model_cfg, self._ints(tokens),
-            self._ints(start), self.kv.k_pages, self.kv.v_pages,
-            self._ints(page_table))
+            net, cfg, self._ints(tokens), self._ints(start), kv.k_pages,
+            kv.v_pages, self._ints(page_table))
 
     def _note_call(self, kind: str, bucket: int):
         """Per-(kind, bucket) dispatch counter."""
@@ -319,14 +378,24 @@ class LLMEngine:
 
     def warmup(self):
         """Run every bucket once up front (first-use costs: the kernel
-        build, library handles, allocator growth)."""
-        zeros_table = [[0] * self.max_pages_per_seq]
+        build, library handles, allocator growth): the draft's buckets
+        and the verify window too when speculation is on."""
         with torch.inference_mode():
-            for s in self.config.prefill_buckets:
-                self._prefill([[0] * s], [1])
-            for b in self.config.batch_buckets:
-                self._decode([0] * b, [0] * b, zeros_table * b)
-            self._chunk([[0] * self._chunk_size], [0], zeros_table)
+            for draft in (False, True) if self.kv_d is not None else \
+                    (False,):
+                width = self.max_pages_per_seq_d if draft else \
+                    self.max_pages_per_seq
+                for s in self.config.prefill_buckets:
+                    self._prefill([[0] * s], [1], draft)
+                for b in self.config.batch_buckets:
+                    self._decode([0] * b, [0] * b, [[0] * width] * b, draft)
+                self._chunk([[0] * self._chunk_size], [0], [[0] * width],
+                            draft)
+            if self.kv_d is not None:
+                k1 = self.config.spec_k + 1
+                for b in self.config.batch_buckets:
+                    self._chunk([[0] * k1] * b, [0] * b,
+                                [[0] * self.max_pages_per_seq] * b)
 
     # -- submission -------------------------------------------------------
 
@@ -395,7 +464,10 @@ class LLMEngine:
                 prefill_ms += (time.perf_counter() - t1) * 1e3
             if self._running:
                 t1 = time.perf_counter()
-                tokens_out += self._decode_once()
+                if self.kv_d is not None:
+                    tokens_out += self._spec_decode_once()
+                else:
+                    tokens_out += self._decode_once()
                 decode_ms += (time.perf_counter() - t1) * 1e3
             did = bool(tokens_out) or advanced
             if did:
@@ -445,8 +517,19 @@ class LLMEngine:
                     pages = self.kv.alloc(need, req)
             except OutOfPagesError:
                 return None
+            d_pages = None
+            if self.kv_d is not None:
+                try:
+                    d_pages = self.kv_d.alloc(
+                        self.kv_d.pages_for_tokens(
+                            len(req.prompt) + req.max_new_tokens
+                            + self.config.spec_k), req)
+                except OutOfPagesError:
+                    self.kv.free(pages, req)  # roll the target's back
+                    return None
             self._waiting.pop(0)
-            seq = _Sequence(req, pages, pos=0, cached=cached)
+            seq = _Sequence(req, pages, pos=0, cached=cached,
+                            d_pages=d_pages)
             self._prefilling.append(seq)
         return seq
 
@@ -455,8 +538,10 @@ class LLMEngine:
     def _advance_prefill(self) -> int:
         """Advance the oldest in-flight prefill by one unit of work: a
         one-shot bucket prefill when the whole prompt fits, otherwise one
-        chunk. Returns tokens emitted (1 exactly when prefill
-        completes)."""
+        chunk of the target prompt, then (speculation on) one unit of the
+        draft model's own prefill. Returns tokens emitted (1 exactly when
+        the target's prefill completes: the first token comes before the
+        draft has its prompt, so the draft does not delay it)."""
         seq = self._prefilling[0]
         req = seq.req
         s = len(req.prompt)
@@ -470,7 +555,11 @@ class LLMEngine:
                 emitted = self._prefill_oneshot(seq)
             else:
                 emitted = self._chunk_advance(seq)
-        if seq.prefilled >= s or seq.req.done.is_set():
+        elif self.kv_d is not None and seq.d_prefilled < s:
+            self._draft_prefill_advance(seq)
+        ready = seq.prefilled >= s and \
+            (self.kv_d is None or seq.d_prefilled >= s)
+        if ready or seq.req.done.is_set():
             with self._lock:
                 if seq in self._prefilling:
                     self._prefilling.remove(seq)
@@ -533,6 +622,35 @@ class LLMEngine:
             self.counters["prefill_steps"] += 1
         return self._emit_first(seq, logits[0, take - 1])
 
+    def _draft_prefill_advance(self, seq: _Sequence):
+        """Give the draft model this sequence's prompt in its own KV
+        pages. The draft never sees the prefix cache (its pages are per
+        sequence), so it processes the whole prompt: one bucket forward
+        (the flash kernel) when the prompt fits, else one chunk per
+        step."""
+        req = seq.req
+        s = len(req.prompt)
+        if seq.d_prefilled == 0 and s <= max(self.config.prefill_buckets):
+            bucket = min(b for b in self.config.prefill_buckets if b >= s)
+            self._note_call("draft_prefill", bucket)
+            _, k, v = self._prefill([req.prompt + [0] * (bucket - s)], [s],
+                                    draft=True)
+            self.kv_d.write_prefill(seq.d_pages, k[0], v[0], s)
+            seq.d_prefilled = s
+        else:
+            c = self._chunk_size
+            take = min(c, s - seq.d_prefilled)
+            toks = req.prompt[seq.d_prefilled:seq.d_prefilled + take]
+            table = seq.d_pages + [0] * (self.max_pages_per_seq_d
+                                         - len(seq.d_pages))
+            self._note_call("draft_chunk", c)
+            _, k, v = self._chunk([toks + [0] * (c - take)],
+                                  [seq.d_prefilled], [table], draft=True)
+            self.kv_d.write_prefill(seq.d_pages, k[0], v[0], take,
+                                    start=seq.d_prefilled)
+            seq.d_prefilled += take
+        seq.d_pos = seq.d_prefilled
+
     def _decode_once(self) -> int:
         with self._lock:
             runs = list(self._running)
@@ -561,6 +679,107 @@ class LLMEngine:
             self._finish(seq)
         return len(runs)
 
+    def _spec_decode_once(self) -> int:
+        """One speculative round over the running set (Leviathan et al.
+        '23, greedy case): the draft proposes K tokens per sequence
+        autoregressively, the target scores all K+1 positions in ONE
+        chunk forward, and the longest proposal prefix that matches the
+        target's own argmaxes is accepted, plus the target's next token
+        after it, so every round emits >= 1 token and the stream is
+        exactly plain greedy's.
+
+        All lanes run the draft loop in lockstep: `max_gap + K` draft
+        decodes per round, where a lane's gap (0 or 1) is its catch-up
+        deficit after a fully-accepted round. A lane past its own
+        `gap + K` budget idles in the batch (its output is neither
+        appended nor read). Each draft step copies only the [bb] argmax
+        ids to the host, and verify only its [bb, K+1] ids.
+        """
+        K = self.config.spec_k
+        with self._lock:
+            runs = list(self._running)
+        n = len(runs)
+        bb = min(b for b in self.config.batch_buckets if b >= n)
+        full = [seq.req.prompt + seq.req.tokens for seq in runs]
+        cur = [seq.d_pos for seq in runs]
+        budget = [seq.pos - seq.d_pos + K for seq in runs]
+        proposals: List[List[int]] = [[] for _ in range(n)]
+        d_table = self._ints(
+            [seq.d_pages + [0] * (self.max_pages_per_seq_d
+                                  - len(seq.d_pages)) for seq in runs]
+            + [[0] * self.max_pages_per_seq_d] * (bb - n))
+        # a lane's draft positions can run past max_seq_len - 1 only
+        # where its request ends first: clamp them into the position
+        # tables (the proposals there are never verified into output)
+        last_pos = self.draft_cfg.max_seq_len - 1
+        for t in range(max(budget)):
+            toks, poss = [0] * bb, [0] * bb
+            active = [i for i in range(n) if t < budget[i]]
+            for i in active:
+                idx = cur[i]
+                # a committed token (catch-up, or the round's first
+                # input), else the lane's own last proposal
+                toks[i] = full[i][idx] if idx < len(full[i]) else \
+                    proposals[i][idx - len(full[i])]
+                poss[i] = min(idx, last_pos)
+            self._note_call("draft_decode", bb)
+            d_logits, d_k, d_v = self._decode(toks, poss, d_table,
+                                              draft=True)
+            d_next = torch.argmax(d_logits, dim=-1).tolist()  # [bb] ids
+            for i in active:
+                self.kv_d.append(runs[i].d_pages, cur[i], d_k[i], d_v[i])
+                cur[i] += 1
+                if cur[i] > runs[i].pos:  # past catch-up: a proposal
+                    proposals[i].append(d_next[i])
+        # verify: the target scores [last_committed, d_1..d_K] at
+        # positions pos..pos+K in one window
+        pad = bb - n
+        self._note_call("verify", bb)
+        logits, new_k, new_v = self._chunk(
+            [[seq.last_token] + proposals[i][:K]
+             for i, seq in enumerate(runs)] + [[0] * (K + 1)] * pad,
+            [seq.pos for seq in runs] + [0] * pad,
+            [seq.pages + [0] * (self.max_pages_per_seq - len(seq.pages))
+             for seq in runs] + [[0] * self.max_pages_per_seq] * pad)
+        greedy = torch.argmax(logits, dim=-1).tolist()  # [bb, K+1] ids
+        tokens_out = accepted = 0
+        finished = []
+        for i, seq in enumerate(runs):
+            a = 0  # accepted proposals: d_{j+1} must equal g_j
+            while a < K and proposals[i][a] == greedy[i][a]:
+                a += 1
+            accepted += a
+            # emit g_0..g_a, stopping at EOS / length where plain greedy
+            # would have stopped
+            emitted = 0
+            fin = False
+            for tok in greedy[i][:a + 1]:
+                seq.req._emit(tok)
+                emitted += 1
+                if self._seq_finished(seq, tok):
+                    fin = True
+                    break
+            tokens_out += emitted
+            if fin:
+                finished.append(seq)
+                continue
+            # commit K/V: verify rows 0..emitted-1 are exactly the
+            # committed tokens' ([last, d_1..d_a] == [last, g_0..g_{a-1}]);
+            # the draft cache is right through pos + min(a+1, K) (it
+            # never saw g_a when a == K)
+            self.kv.write_prefill(seq.pages, new_k[i], new_v[i], emitted,
+                                  start=seq.pos)
+            seq.d_pos = seq.pos + min(a + 1, K)
+            seq.pos += emitted
+        with self._lock:
+            self.counters["decode_steps"] += 1
+            self.counters["spec_rounds"] += 1
+            self.counters["spec_proposed"] += K * n
+            self.counters["spec_accepted"] += accepted
+        for seq in finished:
+            self._finish(seq)
+        return tokens_out
+
     def _seq_finished(self, seq: _Sequence, tok: int) -> bool:
         if seq.n_generated >= seq.req.max_new_tokens:
             seq.req.finish_reason = "length"
@@ -575,6 +794,8 @@ class LLMEngine:
         # refcounted free: pages the prefix cache (or a sibling
         # sequence) still aliases survive this — only the refcount drops
         self.kv.free(seq.pages, seq.req)
+        if seq.d_pages is not None:
+            self.kv_d.free(seq.d_pages, seq.req)
         with self._lock:
             if seq in self._running:
                 self._running.remove(seq)
@@ -639,10 +860,13 @@ class LLMEngine:
         with self._step_lock:
             pass
         self.kv.assert_quiesced()
+        if self.kv_d is not None:
+            self.kv_d.assert_quiesced()
 
     def shutdown(self) -> int:
-        """Stop the pump and drop the KV arena; returns leaked pages
-        (0 after a clean quiesce). Waiting requests are failed."""
+        """Stop the pump and drop the KV arenas (the draft's too);
+        returns leaked pages of both (0 after a clean quiesce). Waiting
+        requests are failed."""
         self.stop()
         with self._lock:
             waiting, self._waiting = self._waiting, []
@@ -652,7 +876,8 @@ class LLMEngine:
             # cached prefixes are reusable state, not leaks: release
             # them so close() reports only true sequence leaks
             self.prefix.drain()
-        return self.kv.close()
+        leaked = self.kv_d.close() if self.kv_d is not None else 0
+        return leaked + self.kv.close()
 
     def metrics(self) -> Dict[str, Any]:
         with self._lock:
@@ -666,6 +891,7 @@ class LLMEngine:
                 kv_pages_total=self.kv.num_pages,
                 kv_page_utilization=self.kv.utilization(),
                 model=self.model_name,
+                spec_k=self.config.spec_k,
                 bucket_calls={
                     f"{kind}:{bucket}": calls
                     for (kind, bucket), calls in
@@ -683,4 +909,9 @@ class LLMEngine:
                 prefix_cache_entries=ps["entries"],
                 prefix_cache_evicted=ps["evicted"],
             )
+        if out["spec_rounds"]:
+            # accepted draft tokens per round, over all lanes (as the JAX
+            # engine reports it)
+            out["spec_mean_accept"] = (out["spec_accepted"]
+                                       / out["spec_rounds"])
         return out

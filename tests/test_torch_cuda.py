@@ -159,27 +159,20 @@ def test_autograd_launches_the_backward_kernel(cuda):
         assert torch.equal(x.grad, w)
 
 
-def test_train_step_on_cuda_matches_cpu(cuda):
-    """One tiny f32 train step (flash attention, fused CE, remat, AdamW
-    3e-4 / wd 1e-4) on the card equals the same step on the CPU: loss,
-    every gradient (relative to its max) and every updated parameter.
-    Tolerance 1e-4: the f32 kernels and cuBLAS sum in another order than
-    the CPU's plain versions, and `index_add_` adds dw's -onehot rows with
-    atomics in a varying order (f32, ~1e-7 relative each)."""
+def _train_step_cpu_and_cuda(cuda, mod, net_cls, cfg):
+    """One f32 train step of `cfg` on the CPU and on the card from the
+    same weights and tokens: [(loss, grads, updated params)] for each."""
     from functools import partial
 
-    from ray_tpu_torch.models import gpt
     from ray_tpu_torch.ops.fused_ce import fused_cross_entropy
 
-    cfg = gpt.GPTConfig.tiny(dtype=torch.float32)
-    params = gpt.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+    params = mod.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
                              dtype=torch.float32)
     toks = torch.randint(0, cfg.vocab_size, (2, 41),
                          generator=torch.Generator().manual_seed(1))
     runs = []
-    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
     for dev in ("cpu", cuda):
-        net = gpt.GPT.from_params(
+        net = net_cls.from_params(
             cfg, {n: p.clone().to(dev) for n, p in params.items()},
             attention_fn=partial(flash_attention, causal=True),
             trainable=True)
@@ -194,14 +187,48 @@ def test_train_step_on_cuda_matches_cpu(cuda):
         runs.append((float(loss.detach()), grads,
                      {n: p.detach().cpu() for n, p in
                       net.named_parameters()}))
-    assert flash_attention.launches == fwd + 2 * cfg.n_layer  # remat
-    assert flash_attention_bwd.launches == \
-        bwd + BWD_KERNELS_PER_CALL * cfg.n_layer
+    return runs
+
+
+def _assert_steps_agree(runs):
     (l_cpu, g_cpu, p_cpu), (l_gpu, g_gpu, p_gpu) = runs
     assert abs(l_cpu - l_gpu) <= 1e-4 * abs(l_cpu)
     for n in g_cpu:
         assert _rel_err(g_gpu[n], g_cpu[n]) <= 1e-4, n
         assert float((p_gpu[n] - p_cpu[n]).abs().max()) <= 1.5e-5, n
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One tiny f32 train step (flash attention, fused CE, remat, AdamW
+    3e-4 / wd 1e-4) on the card equals the same step on the CPU: loss,
+    every gradient (relative to its max) and every updated parameter.
+    Tolerance 1e-4: the f32 kernels and cuBLAS sum in another order than
+    the CPU's plain versions, and `index_add_` adds dw's -onehot rows with
+    atomics in a varying order (f32, ~1e-7 relative each)."""
+    from ray_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig.tiny(dtype=torch.float32)
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    runs = _train_step_cpu_and_cuda(cuda, gpt, gpt.GPT, cfg)
+    assert flash_attention.launches == fwd + 2 * cfg.n_layer  # remat
+    assert flash_attention_bwd.launches == \
+        bwd + BWD_KERNELS_PER_CALL * cfg.n_layer
+    _assert_steps_agree(runs)
+
+
+def test_llama_train_step_on_cuda_matches_cpu(cuda):
+    """The same for the tiny Llama (GQA 4:2 through both kernels at
+    head_dim 16, the v view strided inside the fused QKV output, RoPE,
+    remat), at the same tolerances for the same reasons."""
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    runs = _train_step_cpu_and_cuda(cuda, llama, llama.Llama, cfg)
+    assert flash_attention.launches == fwd + 2 * cfg.n_layer  # remat
+    assert flash_attention_bwd.launches == \
+        bwd + BWD_KERNELS_PER_CALL * cfg.n_layer
+    _assert_steps_agree(runs)
 
 
 @pytest.mark.parametrize("family", ["gpt", "llama"])
@@ -232,3 +259,42 @@ def test_engine_on_cuda_matches_cpu(cuda, family):
         assert eng.shutdown() == 0
     assert outs[0] == outs[1]
     assert flash_attention.launches == before + 3 * cfg.n_layer
+
+
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+def test_spec_engine_on_cuda_matches_cpu(cuda, family):
+    """Speculative decoding (K=3, a self-draft and a draft with its
+    embedding rolled one row) on the card emits the plain CPU engine's
+    greedy tokens; the draft prefills run the flash kernel too."""
+    from ray_tpu_torch.models import gpt, llama
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+    mod = gpt if family == "gpt" else llama
+    cfg = (gpt.GPTConfig if family == "gpt" else llama.LlamaConfig).tiny(
+        dtype=torch.float32)
+    params = mod.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = {k: p * 8 if k.endswith(".weight") else p
+              for k, p in params.items()}
+    prompts = ([5, 9, 3], [7], list(range(1, 12)))
+    buckets = dict(batch_buckets=(1, 2, 4), prefill_buckets=(8, 16))
+    want = []
+    eng = LLMEngine(family, cfg, params, EngineConfig(**buckets),
+                    device="cpu")
+    reqs = [eng.submit(p, 9) for p in prompts]
+    eng.run_until_idle()
+    want = [r.result() for r in reqs]
+    assert eng.shutdown() == 0
+    on_card = {k: p.to(cuda) for k, p in params.items()}
+    rolled = {k: torch.roll(p, 1, 0) if k == "wte" else p
+              for k, p in on_card.items()}
+    for draft in (None, rolled):
+        before = flash_attention.launches
+        eng = LLMEngine(family, cfg, on_card,
+                        EngineConfig(spec_k=3, **buckets), device=cuda,
+                        draft_params=draft)
+        reqs = [eng.submit(p, 9) for p in prompts]
+        eng.run_until_idle()
+        assert [r.result() for r in reqs] == want
+        assert eng.metrics()["spec_rounds"] > 0
+        eng.quiesce()
+        assert eng.shutdown() == 0
+        assert flash_attention.launches == before + 6 * cfg.n_layer

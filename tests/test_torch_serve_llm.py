@@ -7,7 +7,10 @@ The load-bearing properties, as for the JAX engine:
   * the port's engine and the JAX engine, given the same weights, emit
     IDENTICAL greedy tokens;
   * continuous batching, prefix-cache reuse and chunked prefill produce
-    the same tokens as one-at-a-time full-forward greedy decoding.
+    the same tokens as one-at-a-time full-forward greedy decoding;
+  * speculative decoding (a self-draft, a rolled-embedding draft, a
+    fresh draft) emits exactly the plain engine's and the JAX spec
+    engine's tokens, with no page leaked in either arena.
 Everything runs in f32 on the CPU (device="cpu", asked for explicitly).
 """
 
@@ -382,6 +385,210 @@ def test_chunked_prefill_matches_oneshot(fam):
         assert eng.shutdown() == 0
 
 
+# ---------------------------------------------------------------------------
+# speculative decoding: the port's spec engine against its plain engine and
+# the JAX spec engine, same weights
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3
+SPEC_NEW = [9, 12, 4, 10]  # long enough for several rounds side by side
+
+
+def _rolled(params):
+    """The JAX test's `_adversarial_draft` on the port's params: the
+    embedding rolled one row, so the draft's tied head scores a shifted
+    vocabulary and most proposals are rejected."""
+    return {n: torch.roll(p, 1, 0) if n == "wte" else p
+            for n, p in params.items()}
+
+
+def _spec_engine(fam, draft, **cfg_kw):
+    kw = {} if draft == "self" else dict(draft_params=_rolled(fam.params))
+    base = dict(batch_buckets=(1, 2, 4), prefill_buckets=(8, 16),
+                spec_k=SPEC_K)
+    base.update(cfg_kw)
+    eng = LLMEngine(model=fam.model, params=fam.params,
+                    engine_config=EngineConfig(**base), device="cpu", **kw)
+    eng.warmup()
+    return eng
+
+
+def _spec_metrics(m):
+    return {k: m[k] for k in ("spec_rounds", "spec_proposed",
+                              "spec_accepted")}
+
+
+@pytest.mark.parametrize("draft", ["self", "adversarial"])
+def test_spec_tokens_match_plain_and_jax_engine(fam, draft):
+    """With spec_k > 0 the port emits exactly its plain engine's greedy
+    tokens and the JAX spec engine's (the same draft on the same weights,
+    with the same rounds and acceptances); a self-draft accepts every
+    proposal, the rolled draft fewer; both arenas end with zero live
+    pages."""
+    from ray_tpu.serve.llm import EngineConfig as JaxEngineConfig
+    from ray_tpu.serve.llm import LLMEngine as JaxLLMEngine
+    plain = fam.engine()
+    try:
+        want, _ = _run(plain, PROMPTS, SPEC_NEW)
+    finally:
+        assert plain.shutdown() == 0
+    jeng = JaxLLMEngine(model=fam.model, params=fam.variables,
+                        engine_config=JaxEngineConfig(
+                            batch_buckets=(1, 2, 4),
+                            prefill_buckets=(8, 16), spec_k=SPEC_K))
+    if draft == "adversarial":
+        jeng.draft_params = jax.tree_util.tree_map_with_path(
+            lambda path, x: jnp.roll(x, 1, axis=0)
+            if any(getattr(p, "key", None) == "wte" for p in path) else x,
+            fam.variables)
+    try:
+        jax_got, _ = _run(jeng, PROMPTS, SPEC_NEW, tenant="none")
+        jax_m = _spec_metrics(jeng.metrics())
+        jeng.quiesce()
+    finally:
+        assert jeng.shutdown() == 0
+    eng = _spec_engine(fam, draft)
+    try:
+        got, reqs = _run(eng, PROMPTS, SPEC_NEW)
+        assert got == want
+        assert got == jax_got
+        assert all(r.finish_reason == "length" for r in reqs)
+        m = eng.metrics()
+        assert _spec_metrics(m) == jax_m
+        assert m["spec_k"] == SPEC_K and m["spec_rounds"] > 0
+        assert m["bucket_calls"]["verify:2"] > 0  # lanes side by side
+        if draft == "self":
+            assert m["spec_accepted"] == m["spec_proposed"]
+            assert eng.d_net is eng.net  # the target's own tensors
+        else:
+            assert m["spec_accepted"] < m["spec_proposed"]
+        eng.quiesce()
+        assert eng.kv.live_pages == 0 and eng.kv_d.live_pages == 0
+    finally:
+        assert eng.shutdown() == 0
+
+
+def test_spec_with_prefix_cache_matches_cold(fam):
+    """Prefix-cache hits alias the target's pages; the draft still
+    prefills each whole prompt in its own arena."""
+    rng = np.random.RandomState(4)
+    shared = list(rng.randint(1, 500, size=13))
+    prompts = [shared + list(rng.randint(1, 500, size=3)) for _ in range(3)]
+    cold = fam.engine(block_size=4, prefix_cache=0)
+    try:
+        want, _ = _run(cold, prompts, [8] * 3)
+    finally:
+        assert cold.shutdown() == 0
+    eng = _spec_engine(fam, "adversarial", block_size=4, prefix_cache=1)
+    try:
+        got, _ = _run(eng, prompts, [8] * 3)
+        assert got == want
+        m = eng.metrics()
+        assert m["prefix_cache_hits"] == 2
+        assert m["bucket_calls"]["draft_prefill:16"] == 3
+        eng.quiesce()
+        assert eng.kv_d.live_pages == 0
+    finally:
+        assert eng.shutdown() == 0
+
+
+def test_spec_with_chunked_prefill_matches_plain(fam):
+    """A prompt longer than every bucket windows into both models chunk
+    by chunk (the draft's own chunk path)."""
+    rng = np.random.RandomState(3)
+    prompts = [list(rng.randint(1, 500, size=27)),
+               list(rng.randint(1, 500, size=5))]
+    kw = dict(batch_buckets=(1, 2), block_size=4, prefill_chunk=8,
+              prefix_cache=0)
+    plain = fam.engine(**kw)
+    try:
+        want, _ = _run(plain, prompts, [7, 7])
+    finally:
+        assert plain.shutdown() == 0
+    eng = _spec_engine(fam, "self", **kw)
+    try:
+        got, _ = _run(eng, prompts, [7, 7])
+        assert got == want
+        assert eng.metrics()["bucket_calls"]["draft_chunk:8"] == 4
+        eng.quiesce()
+    finally:
+        assert eng.shutdown() == 0
+
+
+def test_spec_fresh_draft_from_draft_cfg(fam):
+    """`draft_cfg` alone: an independent one-layer draft with fresh
+    weights from `seed + 1`; the tokens are still plain greedy's."""
+    import dataclasses
+    plain = fam.engine()
+    try:
+        want, _ = _run(plain, PROMPTS, SPEC_NEW)
+    finally:
+        assert plain.shutdown() == 0
+    eng = LLMEngine(model=fam.model, params=fam.params, device="cpu",
+                    draft_cfg=dataclasses.replace(fam.cfg, n_layer=1),
+                    engine_config=EngineConfig(
+                        batch_buckets=(1, 2, 4), prefill_buckets=(8, 16),
+                        spec_k=SPEC_K))
+    try:
+        assert eng.d_net.config.n_layer == 1 and eng.kv_d.n_layer == 1
+        got, _ = _run(eng, PROMPTS, SPEC_NEW)
+        assert got == want
+        eng.quiesce()
+    finally:
+        assert eng.shutdown() == 0
+    with pytest.raises(ValueError, match="vocab_size"):
+        LLMEngine(model=fam.model, params=fam.params, device="cpu",
+                  draft_cfg=dataclasses.replace(fam.cfg, vocab_size=256),
+                  engine_config=EngineConfig(spec_k=SPEC_K))
+
+
+@pytest.mark.parametrize("model", ["gpt", "llama"])
+def test_spec_request_filling_max_seq_len(model):
+    """A request of exactly max_seq_len tokens: near its end the draft
+    runs past the last position of the position tables (its proposals
+    there lie past the request's end); the tokens are still plain
+    greedy's."""
+    from ray_tpu_torch.models import gpt as tgpt, llama as tllama
+    mod = tgpt.GPTConfig if model == "gpt" else tllama.LlamaConfig
+    cfg = mod.tiny(dtype=torch.float32, max_seq_len=32)
+    base = dict(batch_buckets=(1, 2), prefill_buckets=(8, 16))
+    prompts, new = [[5, 9, 3, 7, 1, 2], [4] * 14], [26, 18]
+    plain = LLMEngine(model=model, model_cfg=cfg, device="cpu",
+                      engine_config=EngineConfig(**base))
+    try:
+        want, _ = _run(plain, prompts, new)
+    finally:
+        assert plain.shutdown() == 0
+    eng = LLMEngine(model=model, model_cfg=cfg, device="cpu",
+                    engine_config=EngineConfig(spec_k=SPEC_K, **base))
+    try:
+        got, _ = _run(eng, prompts, new)
+        assert got == want
+        eng.quiesce()
+    finally:
+        assert eng.shutdown() == 0
+
+
+def test_spec_admission_rolls_back_target_pages():
+    """When the draft arena cannot take a request, admission frees the
+    target pages it just took and the request waits; it runs once the
+    draft pages come free."""
+    eng = _port_engine("gpt", None, spec_k=SPEC_K, prefix_cache=0)
+    try:
+        hog = eng.kv_d.alloc(eng.kv_d.free_pages, "hog")
+        req = eng.submit([5, 9, 3], 4)
+        assert not eng.step()  # nothing admitted
+        assert eng.metrics()["queue_depth"] == 1
+        assert eng.kv.live_pages == 0
+        assert eng.kv.free_pages == eng.kv.num_pages
+        eng.kv_d.free(hog, "hog")
+        eng.run_until_idle()
+        assert len(req.result(timeout=10)) == 4
+        eng.quiesce()
+    finally:
+        assert eng.shutdown() == 0
+
+
 @pytest.fixture(scope="module")
 def llama_engine():
     eng = _port_engine("llama", None)
@@ -430,11 +637,6 @@ def test_pump_thread_and_queueing_past_capacity(llama_engine):
         assert llama_engine.metrics()["kv_pages_live"] == 0
     finally:
         llama_engine.stop()
-
-
-def test_spec_decoding_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="speculative"):
-        _port_engine("gpt", None, spec_k=2)
 
 
 def test_no_gpu_means_no_silent_cpu_run():
