@@ -40,21 +40,36 @@ a non-zero exit) on any failed check:
    at B=4, T=4096 (`train_long`: the T > 2048 regime of the Pallas
    kernels; its full_attention comparison runs at B=1);
 6. serving: GPT-2 125M through `LLMEngine` at full width (random
-   weights from a seed, bf16): requests of 5-900 prompt tokens, two of
-   them sharing a 64-token prefix, 32 new tokens each. Checks: every
-   request finishes with the right length, the flash kernel ran
-   n_layer times per prefill (and the backward never), no KV page
-   leaked, and each request's first-token logits agree with a
-   plain-attention prefill on the card. Then the same, shorter, for
+   weights from a seed, bf16), every bucket a CUDA graph captured at
+   `warmup()` (its seconds, graph count and memory printed): requests
+   of 5-900 prompt tokens, two of them sharing a 64-token prefix, 32 new
+   tokens each. Checks: every request finishes with the right length;
+   no cache miss after `warmup()`, no retrace, and one cache hit per
+   compiled step call; the flash kernel ran n_layer times per prefill
+   (replays credited with their capture's launches; a profiled prefill
+   replay shows n_layer forward kernels) and the backward never; no KV
+   page leaked; each request's first-token logits agree with a
+   plain-attention prefill; every captured bucket agrees with its eager
+   step function on the same inputs and arena; the tokens equal those
+   of the same engine calling its step functions eagerly (near-tie rule
+   below); one request-recorder record per request with its phases
+   tiling the total within 5 %, the registry's `serve_llm_*` and
+   `compile_cache_*` lines with the run's counts, one step-profiler
+   record per engine step, a pump probe that beat and never stalled;
+   and after `shutdown()` the graphs and their memory are released.
+   Prints decode ms/step at batch 8, prefill ms per bucket, profiles
+   and tok/s with graphs and eager. Then the same, shorter, for
    Llama-125M (grouped-query attention);
 7. speculative decoding (`engine_spec`): the GPT-2 engine phase's
    weights and prompts through the engine with K=4, once with a
-   self-draft and once with an independent 2-layer draft. Checks: the
-   tokens equal the plain engine's (a token may differ only where the
-   plain run's top-2 logit gap is a near tie within LOGIT_ATOL; that
-   request's comparison stops there, and the stops are counted), the
-   flash kernel ran for every target and draft prefill, no page leaked
-   in either arena. Prints acceptance, rounds and tokens/s;
+   self-draft and once with an independent 2-layer draft, every target,
+   verify and draft bucket a graph. Checks: the tokens equal the plain
+   engine's (a token may differ only where the plain run's top-2 logit
+   gap is a near tie within LOGIT_ATOL; that request's comparison stops
+   there, and the stops are counted), no cache miss after `warmup()`,
+   every bucket against its eager step function, the flash kernel ran
+   for every target and draft prefill, no page leaked in either arena.
+   Prints acceptance, rounds and tokens/s against plain;
 8. the `kernels` JSON line (every ported kernel with its numbers), the
    card line, and last the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -65,6 +80,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -88,8 +104,10 @@ from ray_tpu_torch.ops.flash_attention import (BWD_KERNELS_PER_CALL,
                                                kernel_occupancy,
                                                kernel_routes)
 from ray_tpu_torch.ops.fused_ce import fused_cross_entropy
+from ray_tpu_torch.parallel import cache_stats, global_cache
 from ray_tpu_torch.parallel.ring_attention import full_attention
 from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+from ray_tpu_torch.util import metrics, request_recorder, step_profiler
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12    # tensor cores, bf16 and fp16
@@ -298,6 +316,11 @@ def profile_steps(fn, steps: int):
         flash_bwd_ms=sum(ms for k, ms in flash.items()
                          if k + "<" in FLASH_BWD_KERNELS),
         flash_by_kernel=flash,
+        # forward attention kernel executions per step (in a graph
+        # replay as well: the trace lists each kernel node it ran)
+        flash_fwd_per_step=sum(n for name, (n, _) in by_name.items()
+                               if any(k in name for k in FLASH_FWD_KERNELS))
+        / steps,
         by_class=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         top=[(name[:70], us / 1e3 / steps) for name, (_, us) in top])
 
@@ -680,7 +703,8 @@ def _top2_gap(logits):
 class _SmokeEngine(LLMEngine):
     """The engine, keeping each request's first-token logits for the
     plain-attention check and, with `record_gaps`, the top-2 logit gap
-    behind each token it emits (the near ties of `phase_engine_spec`)."""
+    behind each token it emits (the near ties of the token comparisons).
+    It reads each graph output before the next replay overwrites it."""
 
     def __init__(self, *a, record_gaps=False, **kw):
         super().__init__(*a, **kw)
@@ -709,6 +733,15 @@ class _SmokeEngine(LLMEngine):
         return n
 
 
+class _EagerEngine(_SmokeEngine):
+    """The graphs' yardstick: the same engine calling every step function
+    eagerly (`fn.__wrapped__`, its host inputs moved to the card), so no
+    graph is captured or replayed."""
+
+    def _run(self, fn, *args):
+        return fn.__wrapped__(*(a.to(self.device) for a in args))
+
+
 def _prompts(cfg, prompt_lens, seed):
     """The engine phases' prompts: random tokens from numpy, the 3rd and
     4th sharing a 64-token prefix (the prefix-cache chunk path runs)."""
@@ -724,69 +757,123 @@ def _prompts(cfg, prompt_lens, seed):
     return [[int(x) for x in p] for p in prompts]
 
 
-def phase_engine(name, mod, cfg, net_cls, buckets, prompt_lens, max_new,
-                 seed, device="cuda"):
-    print(f"engine[{name}]: {cfg}")
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=device).manual_seed(seed)
+def _capture(eng):
+    """`eng.warmup()`, which captures one graph per bucket: the seconds
+    it took, the graphs, and the memory they hold (static buffers and
+    pool: reserved memory after minus before, unused cached blocks
+    released around it)."""
+    entries = global_cache().size()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
-    params = mod.init_params(cfg, gen, device=device)
-    eng = _SmokeEngine(
-        model=name, model_cfg=cfg, params=params, device=device,
-        engine_config=EngineConfig(batch_buckets=(1, 2, 4, 8),
-                                   prefill_buckets=buckets))
     eng.warmup()
     torch.cuda.synchronize()
-    warmup_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    graphs = global_cache().size() - entries
+    assert graphs == len(eng._step_fns()), (graphs, len(eng._step_fns()))
+    return dict(capture_s=seconds, graphs=graphs,
+                graph_mib=(torch.cuda.memory_reserved() - reserved) / 2**20)
 
-    prompts = _prompts(cfg, prompt_lens, seed)
 
-    # the main path: counts at 0 just before, read just after
-    flash_attention.launches = 0
-    flash_attention_bwd.launches = 0
-    eng.start()  # served by the pump thread, as a replica would
-    t0 = time.perf_counter()
-    reqs = [eng.submit(p, max_new) for p in prompts]
-    outs = [r.result(timeout=600) for r in reqs]
-    gen_s = time.perf_counter() - t0
-    eng.quiesce()
-    eng.stop()
-    launches = flash_attention.launches
-    assert flash_attention_bwd.launches == 0  # serving runs no backward
-    m = eng.metrics()
-    prefill_calls = {int(key.split(":")[1]): c
-                     for key, c in m["bucket_calls"].items()
-                     if key.startswith("prefill:")}
-    prefills = sum(prefill_calls.values())
+def _check_cache(before, after, calls):
+    """Steady state is all replays: no miss after warmup(), no retrace,
+    and one hit per compiled step call of the run."""
+    assert after["misses"] == before["misses"], (before, after)
+    assert after["retraces"] == 0, after
+    assert after["hits"] - before["hits"] == sum(calls.values()), (
+        before, after, calls)
 
-    for r, out in zip(reqs, outs):
-        assert r.finish_reason == "length" and len(out) == max_new, (
-            r.id, r.finish_reason, len(out))
-        assert all(0 <= t < cfg.vocab_size for t in out)
-    assert launches == cfg.n_layer * prefills > 0, (launches, prefills)
-    assert m["prefix_cache_hits"] >= 1, m  # the shared-prefix chunk path
 
-    # first-token logits against a plain-attention prefill on the card
-    plain = net_cls.from_params(cfg, params, attention_fn=full_attention)
-    worst = 0.0
+def _bucket_inputs(eng, gen):
+    """(name, compiled step function, host arguments) for every bucket of
+    `eng`: random tokens, positions and page tables over the arena as the
+    run left it."""
+    cfg = eng.model_cfg
+
+    def ints(*shape, low=0, high):
+        return torch.randint(low, high, shape, generator=gen)
+
+    out = []
+    for draft in (False, True) if eng.kv_d is not None else (False,):
+        kv = eng.kv_d if draft else eng.kv
+        width = eng.max_pages_per_seq_d if draft else eng.max_pages_per_seq
+        for s, fn in (eng._d_prefill_fns if draft
+                      else eng._prefill_fns).items():
+            out.append((fn, (ints(1, s, high=cfg.vocab_size),
+                             ints(1, low=1, high=s + 1))))
+        for b, fn in (eng._d_decode_fns if draft
+                      else eng._decode_fns).items():
+            out.append((fn, (ints(b, high=cfg.vocab_size),
+                             ints(b, low=1, high=cfg.max_seq_len),
+                             kv.k_pages, kv.v_pages,
+                             ints(b, width, high=kv.num_pages))))
+        fn, c = (eng._d_chunk_fn if draft else eng._chunk_fn), eng._chunk_size
+        out.append((fn, (ints(1, c, high=cfg.vocab_size),
+                         ints(1, high=cfg.max_seq_len - c + 1),
+                         kv.k_pages, kv.v_pages,
+                         ints(1, width, high=kv.num_pages))))
+    if eng.kv_d is not None:
+        k1 = eng.config.spec_k + 1
+        for b, fn in eng._verify_fns.items():
+            out.append((fn, (ints(b, k1, high=cfg.vocab_size),
+                             ints(b, high=cfg.max_seq_len - k1 + 1),
+                             eng.kv.k_pages, eng.kv.v_pages,
+                             ints(b, eng.max_pages_per_seq,
+                                  high=eng.kv.num_pages))))
+    return [(fn.__name__, fn, args) for fn, args in out]
+
+
+def _check_buckets(eng, seed):
+    """Every captured bucket against its eager step function on the same
+    inputs and arena: logits within LOGIT_ATOL, argmax equal unless the
+    eager top-2 gap is a near tie (within LOGIT_ATOL), K/V within two
+    bf16 ulps of their largest magnitude (2^-7 of it). Returns each
+    bucket's worst logit difference."""
+    gen = torch.Generator().manual_seed(seed)
+    worst = {}
     with torch.inference_mode():
-        for r, p in zip(reqs, prompts):
-            s = len(p)
-            bucket = min(b for b in buckets if b >= s)
-            toks = torch.tensor([p + [0] * (bucket - s)], device=device)
-            want, _, _ = mod.prefill_step(plain, cfg, toks,
-                                          torch.tensor([s], device=device))
-            want = want[0].float().cpu()
-            got = eng.first_logits[r.id]
-            assert torch.isfinite(got).all()
-            diff = float((got - want).abs().max())
-            worst = max(worst, diff)
-            assert diff <= LOGIT_ATOL, (r.id, s, diff)
-            # the emitted token is a top choice of the plain logits too
-            assert float(want[r.tokens[0]]) >= float(want.max()) - \
-                2 * LOGIT_ATOL, (r.id, s)
+        for name, fn, args in _bucket_inputs(eng, gen):
+            got = [x.clone() for x in fn(*args)]  # the next replay reuses
+            want = fn.__wrapped__(*(a.to(eng.device) for a in args))
+            logits, wlogits = got[0].float(), want[0].float()
+            assert torch.isfinite(logits).all(), name
+            diff = float((logits - wlogits).abs().max())
+            assert diff <= LOGIT_ATOL, (name, diff)
+            split = logits.argmax(-1) != wlogits.argmax(-1)
+            assert bool((_top2_gap(wlogits)[split] <= LOGIT_ATOL).all()), name
+            for g, w in zip(got[1:], want[1:]):
+                err = float((g.float() - w.float()).abs().max())
+                assert err <= 2.0 ** -7 * float(w.float().abs().max()), (
+                    name, err)
+            worst[name] = diff
+    return worst
 
-    # step times of the engine's own step functions, after the run
+
+def _near_tie_compare(outs, want, gaps, label):
+    """Tokens against a reference run's: a token may differ only where
+    the reference's top-2 logit gap there is within LOGIT_ATOL (bf16
+    rounds a near tie either way); that request's comparison stops
+    there. Returns (tokens compared, [near-tie stops])."""
+    ties, compared = [], 0
+    for i, (got, w, g) in enumerate(zip(outs, want, gaps)):
+        for j, (a, b) in enumerate(zip(got, w)):
+            if a != b:
+                assert g[j] <= LOGIT_ATOL, (
+                    f"{label}: request {i} token {j} is {a}, the "
+                    f"reference's {b} with a top-2 gap of {g[j]} (> "
+                    f"{LOGIT_ATOL}: not a near tie)")
+                ties.append(dict(request=i, token=j, gap=g[j]))
+                break
+            compared += 1
+    return compared, ties
+
+
+def _step_times(eng, cfg, buckets):
+    """Host-clock ms of one prefill per bucket and of a batch-8 decode
+    (its argmax to the host, as the engine does), and profiles of both
+    at the largest bucket."""
     prefill_ms = {}
     with torch.inference_mode():
         for s in buckets:
@@ -794,50 +881,61 @@ def phase_engine(name, mod, cfg, net_cls, buckets, prompt_lens, max_new,
         table = [list(range(i * eng.max_pages_per_seq,
                             (i + 1) * eng.max_pages_per_seq))
                  for i in range(8)]
+
         def decode_b8():
             return torch.argmax(eng._decode(
                 [1] * 8, [cfg.max_seq_len // 2] * 8, table)[0], -1).tolist()
 
-        top_bucket = max(buckets)
+        top = max(buckets)
         decode_ms = host_ms(decode_b8)
         profiles = {
             "decode_b8": profile_steps(decode_b8, 10),
-            f"prefill_{top_bucket}": profile_steps(
-                lambda: eng._prefill([[1] * top_bucket], [top_bucket]), 3)}
-    leaked = eng.shutdown()
-    assert leaked == 0, f"{leaked} KV pages leaked"
-    n_tok = sum(len(o) for o in outs)
-    row = dict(model=name, n_layer=cfg.n_layer, warmup_s=warmup_s,
-               requests=len(reqs),
-               prompt_lens=prompt_lens, new_tokens=n_tok,
-               gen_s=gen_s, tokens_per_s=n_tok / gen_s,
-               flash_launches=launches, prefills=prefills,
-               prefill_calls=prefill_calls,
-               chunk_steps=m["chunk_steps"], decode_steps=m["decode_steps"],
-               prefix_cache_hit_tokens=m["prefix_cache_hit_tokens"],
-               first_logit_max_diff=worst, leaked_pages=leaked,
-               prefill_ms=prefill_ms, decode_ms_b8=decode_ms,
-               profiles=profiles,
-               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-    print(f"engine[{name}]: warm-up {warmup_s:.2f} s, {len(reqs)} requests "
-          f"x {max_new} tokens in {gen_s:.3f} s = {n_tok / gen_s:.1f} "
-          f"tok/s; flash launches {launches} = {cfg.n_layer} x "
-          f"{prefills} prefills; chunk steps {m['chunk_steps']}; "
-          f"first-token logits max diff vs plain {worst:.4f}; leaked "
-          f"{leaked}")
-    print(f"engine[{name}]: prefill ms by bucket "
-          f"{ {s: round(v, 3) for s, v in prefill_ms.items()} }; decode "
-          f"{decode_ms:.3f} ms/step at batch 8")
-    for key, p in profiles.items():
-        busy = "not measured" if p["busy_share"] is None else \
-            f"{p['device_ms']:.3f} ms device busy = {p['busy_share']:.1%}"
-        print(f"engine[{name}]: profile {key}: {p['wall_ms']:.3f} ms/step "
-              f"wall, {busy}, {p['kernels_per_step']:.0f} kernels/step, "
-              f"flash {p['flash_ms']:.3f} ms; top {p['top']}")
-    return row
+            f"prefill_{top}": profile_steps(
+                lambda: eng._prefill([[1] * top], [top]), 3)}
+    return prefill_ms, decode_ms, profiles
 
 
-SPEC_K = 4
+def _observed(eng, reqs, steps_before, hits):
+    """The engine's observability after a run: one request-recorder
+    engine record per request with its phases tiling the total (within
+    5 %), the port registry's `serve_llm_*` and `compile_cache_*` lines
+    with the run's counts, one step-profiler record per engine step, and
+    a pump probe that beat and never stalled."""
+    m = eng.metrics()
+    records = [r for r in request_recorder.ring().recent()
+               if r.role == "engine"]
+    assert len(records) == len(reqs), len(records)
+    ratios = [r.phase_sum_ms() / r.total_ms for r in records]
+    assert all(0.95 <= x <= 1.05 for x in ratios), [r.as_dict() for r in records]
+    assert all(r.outcome == "ok" and r.ttft_ms > 0 for r in records)
+    text = metrics.DEFAULT_REGISTRY.prometheus_text()
+    for line in (f"serve_llm_tokens_generated_total "
+                 f"{int(m['tokens_generated'])}",
+                 f"serve_llm_requests_completed_total {len(reqs)}",
+                 f"compile_cache_hits_total {hits}",
+                 "compile_cache_retraces_total 0",
+                 *(f'serve_llm_compiled_step_calls_total{{kind="{k}",'
+                   f'bucket="{b}"}} {n}' for k, b, n in (
+                       (*key.rsplit(":", 1), n) for key, n in
+                       m["compiled_step_calls"].items()))):
+        assert line in text.splitlines(), line
+    steps = step_profiler.ring().total_recorded - steps_before
+    assert steps == eng._step_no, (steps, eng._step_no)
+    step_ms = sorted(r["total_ms"] for r in step_profiler.recent(steps))
+    probe = eng._pump_probe
+    assert probe.count > 0 and probe.stalls_total == 0, (
+        probe.count, probe.stalls_total)
+    return dict(records=len(records), phase_ratio=(min(ratios),
+                                                   max(ratios)),
+                ttft_ms=sorted(r.ttft_ms for r in records),
+                tpot_ms=sorted(r.tpot_ms for r in records if r.tpot_ms),
+                step_records=steps, step_ms_p50=step_ms[len(step_ms) // 2],
+                step_ms_max=step_ms[-1],
+                # host clock of the run's decode passes, per step: the
+                # replay, the argmax sync and the per-lane K/V appends
+                decode_ms_per_step=m["decode_ms"] / m["decode_steps"],
+                prefill_ms_per_step=m["prefill_ms"] / m["prefill_steps"],
+                pump_beats=probe.count, pump_stalls=probe.stalls_total)
 
 
 def _serve(eng, prompts, max_new):
@@ -860,14 +958,178 @@ def _serve(eng, prompts, max_new):
     return reqs, outs, gen_s, flash_attention.launches
 
 
+def _mib(nbytes):
+    return round(nbytes / 2**20, 1)
+
+
+def _allocated():
+    """Bytes the caching allocator has handed out, after dropping cuBLAS'
+    per-(handle, stream) workspaces: a new thread or stream (a pump
+    thread, the capture stream) adds one that the process keeps."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def phase_engine(name, mod, cfg, net_cls, buckets, prompt_lens, max_new,
+                 seed, device="cuda"):
+    """Serves the prompts through the engine with every bucket a captured
+    CUDA graph, then through an engine calling the same step functions
+    eagerly, and holds one to the other (see the module docstring)."""
+    print(f"engine[{name}]: {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = mod.init_params(cfg, gen, device=device)
+    ecfg = EngineConfig(batch_buckets=(1, 2, 4, 8), prefill_buckets=buckets)
+    entries_before = global_cache().size()
+    mem_before = _allocated()
+    t0 = time.perf_counter()
+    eng = _SmokeEngine(model=name, model_cfg=cfg, params=params,
+                       device=device, engine_config=ecfg)
+    capture = _capture(eng)
+    warmup_s = time.perf_counter() - t0
+    prompts = _prompts(cfg, prompt_lens, seed)
+
+    # the main path: counts at 0 just before (in _serve), read just after
+    stats0 = cache_stats()
+    request_recorder.clear()
+    steps_before = step_profiler.ring().total_recorded
+    reqs, outs, gen_s, launches = _serve(eng, prompts, max_new)
+    stats1 = cache_stats()
+    m = eng.metrics()
+    calls = m["compiled_step_calls"]
+    _check_cache(stats0, stats1, calls)
+    prefill_calls = {int(key.split(":")[1]): c for key, c in calls.items()
+                     if key.startswith("prefill:")}
+    prefills = sum(prefill_calls.values())
+    for out in outs:
+        assert all(0 <= t < cfg.vocab_size for t in out)
+    assert launches == cfg.n_layer * prefills > 0, (launches, prefills)
+    assert m["prefix_cache_hits"] >= 1, m  # the shared-prefix chunk path
+    observed = _observed(eng, reqs, steps_before, stats1["hits"])
+
+    # first-token logits against a plain-attention prefill on the card
+    plain = net_cls.from_params(cfg, params, attention_fn=full_attention)
+    worst = 0.0
+    with torch.inference_mode():
+        for r, p in zip(reqs, prompts):
+            s = len(p)
+            bucket = min(b for b in buckets if b >= s)
+            toks = torch.tensor([p + [0] * (bucket - s)], device=device)
+            want, _, _ = mod.prefill_step(plain, cfg, toks,
+                                          torch.tensor([s], device=device))
+            want = want[0].float().cpu()
+            got = eng.first_logits[r.id]
+            assert torch.isfinite(got).all()
+            diff = float((got - want).abs().max())
+            worst = max(worst, diff)
+            assert diff <= LOGIT_ATOL, (r.id, s, diff)
+            # the emitted token is a top choice of the plain logits too
+            assert float(want[r.tokens[0]]) >= float(want.max()) - \
+                2 * LOGIT_ATOL, (r.id, s)
+    del plain
+
+    # each captured bucket against its eager step function
+    bucket_diff = _check_buckets(eng, seed)
+    graphed = _step_times(eng, cfg, buckets)
+    # a profiled prefill replay ran the forward kernel once per layer
+    top_profile = graphed[2][f"prefill_{max(buckets)}"]
+    assert top_profile["flash_fwd_per_step"] == cfg.n_layer, top_profile
+
+    # the same prompts through the eager engine: the graphs' tokens
+    eager = _EagerEngine(model=name, model_cfg=cfg, params=params,
+                         device=device, engine_config=ecfg,
+                         record_gaps=True)
+    eager.warmup()
+    eager_reqs, want, eager_s, _ = _serve(eager, prompts, max_new)
+    compared, ties = _near_tie_compare(
+        outs, want, [eager.gaps[r.id] for r in eager_reqs],
+        f"engine[{name}]")
+    eager_times = _step_times(eager, cfg, buckets)
+
+    leaked = eng.shutdown() + eager.shutdown()
+    assert leaked == 0, f"{leaked} KV pages leaked"
+    del eng, eager
+    mem_after = _allocated()
+    assert global_cache().size() == entries_before  # graphs evicted
+    assert mem_after - mem_before <= 8 * 2**20, (mem_before, mem_after)
+    n_tok = sum(len(o) for o in outs)
+    row = dict(model=name, n_layer=cfg.n_layer, warmup_s=warmup_s,
+               **capture, requests=len(reqs),
+               prompt_lens=prompt_lens, new_tokens=n_tok,
+               gen_s=gen_s, tokens_per_s=n_tok / gen_s,
+               eager_gen_s=eager_s, eager_tokens_per_s=n_tok / eager_s,
+               flash_launches=launches, prefills=prefills,
+               prefill_calls=prefill_calls, compiled_step_calls=calls,
+               cache_before=stats0, cache_after=stats1,
+               chunk_steps=m["chunk_steps"], decode_steps=m["decode_steps"],
+               prefix_cache_hit_tokens=m["prefix_cache_hit_tokens"],
+               first_logit_max_diff=worst, bucket_logit_diff=bucket_diff,
+               compared_tokens=compared, near_ties=ties,
+               observed=observed, leaked_pages=leaked,
+               prefill_ms=graphed[0], decode_ms_b8=graphed[1],
+               profiles=graphed[2], eager_prefill_ms=eager_times[0],
+               eager_decode_ms_b8=eager_times[1],
+               eager_profiles=eager_times[2],
+               mem_before_mib=_mib(mem_before), mem_after_mib=_mib(mem_after),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"engine[{name}]: warm-up {warmup_s:.2f} s: {capture['graphs']} "
+          f"graphs captured in {capture['capture_s']:.2f} s, holding "
+          f"{capture['graph_mib']:.1f} MiB (static buffers and pool)")
+    print(f"engine[{name}]: {len(reqs)} requests x {max_new} tokens in "
+          f"{gen_s:.3f} s = {n_tok / gen_s:.1f} tok/s with graphs, "
+          f"{n_tok / eager_s:.1f} tok/s eager; flash launches {launches} = "
+          f"{cfg.n_layer} x {prefills} prefills (profiled prefill replay: "
+          f"{top_profile['flash_fwd_per_step']:.0f}); chunk steps "
+          f"{m['chunk_steps']}; cache hits {stats1['hits'] - stats0['hits']}"
+          f" = compiled step calls, misses +0, retraces "
+          f"{stats1['retraces']}; first-token logits max diff vs plain "
+          f"{worst:.4f}; buckets vs eager max logit diff "
+          f"{max(bucket_diff.values()):.4f}; tokens equal to the eager "
+          f"engine's: {compared} compared, {len(ties)} near-tie stop(s) "
+          f"{[(t['request'], t['token'], round(t['gap'], 4)) for t in ties]}"
+          f"; leaked {leaked}")
+    print(f"engine[{name}]: recorder {observed['records']} records, phase "
+          f"sum/total {observed['phase_ratio'][0]:.4f}.."
+          f"{observed['phase_ratio'][1]:.4f}, TTFT ms "
+          f"{[round(x, 2) for x in observed['ttft_ms']]}; step profiler "
+          f"{observed['step_records']} records, step ms p50 "
+          f"{observed['step_ms_p50']:.3f} max {observed['step_ms_max']:.3f};"
+          f" in the run a decode pass took "
+          f"{observed['decode_ms_per_step']:.3f} ms and a prefill "
+          f"{observed['prefill_ms_per_step']:.3f} ms; pump beats "
+          f"{observed['pump_beats']}, stalls {observed['pump_stalls']}; "
+          f"memory allocated {_mib(mem_before)} MiB before the engine, "
+          f"{_mib(mem_after)} MiB after shutdown")
+    for label, (p_ms, d_ms, profiles) in (("graphs", graphed),
+                                          ("eager", eager_times)):
+        print(f"engine[{name}]: {label}: prefill ms by bucket "
+              f"{ {s: round(v, 3) for s, v in p_ms.items()} }; decode "
+              f"{d_ms:.3f} ms/step at batch 8")
+        for key, p in profiles.items():
+            busy = "not measured" if p["busy_share"] is None else \
+                f"{p['device_ms']:.3f} ms device busy = {p['busy_share']:.1%}"
+            print(f"engine[{name}]: {label}: profile {key}: "
+                  f"{p['wall_ms']:.3f} ms/step wall, {busy}, "
+                  f"{p['kernels_per_step']:.0f} kernels/step, flash "
+                  f"{p['flash_ms']:.3f} ms; top {p['top'][:4]}")
+    return row
+
+
+SPEC_K = 4
+
+
 def phase_engine_spec(cfg, buckets, prompt_lens, max_new, seed,
                       device="cuda"):
     """GPT-2 125M with speculative decoding (K = `SPEC_K`), once with a
     self-draft and once with an independent 2-layer draft (fresh weights
     from another seed), against the plain engine's greedy tokens on the
-    same weights and prompts. bf16 verify (a chunk step) and bf16 decode
-    may round a near tie apart: a token that differs passes only where
-    the plain run's top-2 logit gap at that position is within
+    same weights and prompts, every bucket a graph (the target's, the
+    verify windows and the draft's). bf16 verify (a chunk step) and bf16
+    decode may round a near tie apart: a token that differs passes only
+    where the plain run's top-2 logit gap at that position is within
     LOGIT_ATOL, and that request's comparison stops there."""
     print(f"engine_spec: {cfg}, K={SPEC_K}")
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -881,6 +1143,7 @@ def phase_engine_spec(cfg, buckets, prompt_lens, max_new, seed,
     reqs, want, plain_s, _ = _serve(plain, prompts, max_new)
     gaps = [plain.gaps[r.id] for r in reqs]
     assert plain.shutdown() == 0
+    del plain
     n_tok = len(prompts) * max_new
     print(f"engine_spec: plain {n_tok} tokens in {plain_s:.3f} s = "
           f"{n_tok / plain_s:.1f} tok/s")
@@ -893,11 +1156,13 @@ def phase_engine_spec(cfg, buckets, prompt_lens, max_new, seed,
         eng = LLMEngine(model="gpt", model_cfg=cfg, params=params,
                         device=device, seed=seed + 10, draft_cfg=draft_cfg,
                         engine_config=EngineConfig(spec_k=SPEC_K, **ecfg))
-        eng.warmup()
-        torch.cuda.synchronize()
+        capture = _capture(eng)
+        stats0 = cache_stats()
         reqs, outs, gen_s, launches = _serve(eng, prompts, max_new)
+        stats1 = cache_stats()
         m = eng.metrics()
-        calls = m["bucket_calls"]
+        calls = m["compiled_step_calls"]
+        _check_cache(stats0, stats1, calls)
         prefills = sum(c for k, c in calls.items()
                        if k.startswith("prefill:"))
         d_prefills = sum(c for k, c in calls.items()
@@ -906,22 +1171,12 @@ def phase_engine_spec(cfg, buckets, prompt_lens, max_new, seed,
         assert d_prefills == len(prompts), calls  # every prompt fits
         assert launches == cfg.n_layer * prefills + d_layers * d_prefills, (
             launches, calls)
-        ties, compared = [], 0
-        for i, (got, w, g) in enumerate(zip(outs, want, gaps)):
-            for j, (a, b) in enumerate(zip(got, w)):
-                if a != b:
-                    assert g[j] <= LOGIT_ATOL, (
-                        f"engine_spec[{label}]: request {i} token {j} is "
-                        f"{a}, plain greedy's {b} with a top-2 gap of "
-                        f"{g[j]} (> {LOGIT_ATOL}: not a near tie)")
-                    ties.append(dict(request=i, token=j, gap=g[j]))
-                    break
-                compared += 1
-        stops = len(ties)
-        tie_list = [(t["request"], t["token"], round(t["gap"], 4))
-                    for t in ties]
+        compared, ties = _near_tie_compare(outs, want, gaps,
+                                           f"engine_spec[{label}]")
+        bucket_diff = _check_buckets(eng, seed)
         leaked = eng.shutdown()
         assert leaked == 0, f"{leaked} KV pages leaked"
+        del eng
         accept = m["spec_accepted"] / m["spec_proposed"]
         if label == "self":
             # the draft is the target: only near ties reject
@@ -937,18 +1192,25 @@ def phase_engine_spec(cfg, buckets, prompt_lens, max_new, seed,
                    / m["spec_proposed"],
                    flash_launches=launches,
                    draft_prefill_launches=d_layers * d_prefills,
-                   compared_tokens=compared, near_tie_stops=stops,
+                   **capture, cache_before=stats0, cache_after=stats1,
+                   bucket_logit_diff=bucket_diff,
+                   compared_tokens=compared, near_tie_stops=len(ties),
                    near_ties=ties,
-                   bucket_calls=calls, leaked_pages=leaked)
+                   compiled_step_calls=calls, leaked_pages=leaked)
         rows.append(row)
-        print(f"engine_spec[{label}]: {n_tok} tokens in {gen_s:.3f} s = "
+        print(f"engine_spec[{label}]: {capture['graphs']} graphs captured "
+              f"in {capture['capture_s']:.2f} s ({capture['graph_mib']:.1f}"
+              f" MiB); {n_tok} tokens in {gen_s:.3f} s = "
               f"{n_tok / gen_s:.1f} tok/s (plain {n_tok / plain_s:.1f}); "
               f"{m['spec_rounds']} rounds, accepted {m['spec_accepted']} of "
               f"{m['spec_proposed']} proposals = {accept:.1%}; flash "
               f"launches {launches} (draft prefill {d_layers} x "
-              f"{d_prefills}); tokens equal to plain greedy: {compared} "
-              f"compared, {stops} request(s) stopped at a near tie "
-              f"(request, token, gap): {tie_list}")
+              f"{d_prefills}); cache hits {stats1['hits'] - stats0['hits']}"
+              f" = compiled step calls, misses +0; buckets vs eager max "
+              f"logit diff {max(bucket_diff.values()):.4f}; tokens equal to "
+              f"plain greedy: {compared} compared, {len(ties)} request(s) "
+              f"stopped at a near tie (request, token, gap): "
+              f"{[(t['request'], t['token'], round(t['gap'], 4)) for t in ties]}")
     return rows
 
 

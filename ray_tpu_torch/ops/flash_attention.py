@@ -36,7 +36,16 @@ straight in.
 `flash_attention.launches` counts forward kernel launches and
 `flash_attention_bwd.launches` backward kernel launches (two per backward
 call: dQ, then dK/dV), and nothing else, so a run can show that its main
-path went through the kernels.
+path went through the kernels. A CUDA graph capture (`parallel.
+compile_cache`) adds to them too while nothing runs; the cache takes that
+back and credits each replay with it.
+
+Under a capture the forward's host side stays legal: it sets the
+kernel's shared-memory attribute, encodes its TMA tensor maps from this
+call's pointers and passes them by value, and allocates O and lse with
+`torch.empty` (from the graph's pool); it never syncs. A replay so reads
+and writes the addresses of capture time, which the compiled-step cache
+keeps static.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """serve.llm — LLM inference plane of the port: a paged KV cache in
-device memory (`kv_cache.py`) and the continuous-batching engine
-(`engine.py`). The Serve deployment comes with the port of the runtime.
+device memory (`kv_cache.py`) and the continuous-batching engine on the
+compiled-step cache, one CUDA graph per bucket (`engine.py`). The Serve
+deployment and `reclaim_arena` come with the port of the runtime.
 """
 
 from ray_tpu_torch.serve.llm.kv_cache import (

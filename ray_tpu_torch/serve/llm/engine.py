@@ -5,10 +5,17 @@ scheduling (every `step()` interleaves at most `max_prefills_per_step`
 prompt prefills with one decode iteration over the whole running set;
 sequences join and leave the decode batch between steps, and a finished
 sequence frees its KV pages at once). Prompts pad into prefill buckets
-and the decode batch into batch buckets, as in the JAX engine. PyTorch
-runs eagerly, so where the JAX engine holds one compiled executable per
-bucket the port calls the model's step function directly per bucket;
-`bucket_calls` counts the calls per (kind, bucket) all the same.
+and the decode batch into batch buckets, as in the JAX engine, and each
+bucket owns its own `parallel.compiled_step` wrapper with
+``on_retrace="error"``: where the JAX engine holds one AOT executable
+per bucket, the port holds one captured CUDA graph per bucket (on the
+CPU, the eager step function under the same cache keys and counters).
+`warmup()` captures every bucket, so steady-state serving is one graph
+replay per step function call and can never silently recapture
+(`parallel.cache_stats()` proves it). The graphs read the KV arena and
+the weights live, by address; their outputs are overwritten by the next
+replay of the same graph, so every caller below consumes them (argmax,
+an arena write) before that. `shutdown()` evicts the graphs.
 
 Prefill runs the model with the hand-written flash-attention kernel
 (`ray_tpu_torch.ops.flash_attention`); decode and chunk attention are
@@ -35,9 +42,16 @@ All device work runs under `torch.inference_mode()` on the engine's one
 device, on the current stream, from whichever thread steps the engine
 (the caller's, or the pump thread after `start()`).
 
-Not ported yet: the native dispatch-ring intake, the request recorder /
-tracing / step-profiler / health-probe hooks with the `/metrics` text,
-and the shared-memory arena (`store=`).
+Observability, as in the JAX engine: requests carry the request
+recorder's phase stamps and every finished, timed-out or failed request
+emits one engine record (`util.request_recorder`); prefills run inside
+`llm.prefill` / `llm.prefill_chunk` spans (`util.tracing`); every step
+is recorded by the step profiler (`util.step_profiler`); the `/metrics`
+text is a `serve_llm` callback on the port's registry (`util.metrics`);
+and the pump thread beats a deadman probe (`_private.health`).
+
+Not ported yet: the native dispatch-ring intake and the shared-memory
+arena (`store=`, with its `kv_arena_id`).
 """
 
 from __future__ import annotations
@@ -53,9 +67,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch._private import health as _health
 from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.parallel.compile_cache import compiled_step
 from ray_tpu_torch.serve.llm.kv_cache import (OutOfPagesError, PagedKVCache,
                                               PrefixCache)
+from ray_tpu_torch.util import metrics as _metrics
+from ray_tpu_torch.util import request_recorder as _rr
+from ray_tpu_torch.util import step_profiler as _sp
+from ray_tpu_torch.util import tracing as _tracing
 
 
 def _env_int(name: str, default: int) -> int:
@@ -129,6 +149,10 @@ class RequestRejected(RuntimeError):
 
 _req_counter = itertools.count(1)
 
+# the k_pages, v_pages arguments of the decode, chunk and verify step
+# functions: a graph reads the arena in place, by address
+_ARENA_ARGS = (2, 3)
+
 
 class Request:
     """One generation request; tokens stream into `out_q` as produced.
@@ -150,6 +174,18 @@ class Request:
         self.done = threading.Event()
         self.error: Optional[str] = None
         self.finish_reason: Optional[str] = None
+        self.submit_ts = time.monotonic()
+        self.finish_ts: Optional[float] = None
+        # request-recorder phase stamps (monotonic) and the request
+        # context captured at submit(): the pump thread cannot see the
+        # submitter's contextvars, so the ctx rides the Request
+        self.ctx: Optional[dict] = None
+        self.submit_wall = time.time()
+        self.first_consider_ts: Optional[float] = None
+        self.admit_ts: Optional[float] = None
+        self.prefill_ms = 0.0
+        self.first_token_ts: Optional[float] = None
+        self.last_token_ts: Optional[float] = None
 
     def __repr__(self):
         return f"Request({self.id})"
@@ -179,16 +215,24 @@ class Request:
     # -- engine side -----------------------------------------------------
 
     def _emit(self, token: int):
+        # per-token recorder cost: one monotonic read (TPOT = span
+        # between the first and last of these stamps)
+        now = time.monotonic()
+        if self.first_token_ts is None:
+            self.first_token_ts = now
+        self.last_token_ts = now
         self.tokens.append(token)
         self.out_q.put(("token", len(self.tokens) - 1, token))
 
     def _finish(self, reason: str):
         self.finish_reason = reason
+        self.finish_ts = time.monotonic()
         self.out_q.put(("done", reason))
         self.done.set()
 
     def _fail(self, msg: str):
         self.error = msg
+        self.finish_ts = time.monotonic()
         self.out_q.put(("error", msg))
         self.done.set()
 
@@ -242,6 +286,10 @@ class LLMEngine:
     target's config) names another; `draft_cfg` alone draws fresh draft
     weights from `seed + 1`. The draft is of the same family, with the
     target's vocabulary and `max_seq_len`.
+
+    On a CUDA device every bucket's step function is a captured CUDA
+    graph in one memory pool of the engine's own (its graphs never run
+    at the same time); `warmup()` captures them all.
     """
 
     def __init__(self, model: str = "llama", model_cfg=None, params=None,
@@ -281,6 +329,8 @@ class LLMEngine:
         # one chunk width (B=1, C=_chunk_size) covers both chunked
         # prefill windows and prefix-cache-hit suffixes
         self._chunk_size = cfg.prefill_chunk or max(cfg.prefill_buckets)
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
 
         # speculative decoding: the draft's own net and KV arena
         self.draft_cfg = self.draft_params = self.d_net = None
@@ -313,6 +363,34 @@ class LLMEngine:
             self.kv_d = self._arena(
                 self.draft_cfg, cfg.max_running * self.max_pages_per_seq_d)
 
+        # one compiled_step wrapper per bucket: each sees exactly one
+        # abstract signature, so on_retrace="error" turns any shape
+        # drift in steady-state serving into a loud failure
+        self._prefill_fns = {s: self._compiled(self._make_prefill_fn(s))
+                             for s in cfg.prefill_buckets}
+        self._decode_fns = {
+            b: self._compiled(self._make_decode_fn(b), _ARENA_ARGS)
+            for b in cfg.batch_buckets}
+        self._chunk_fn = self._compiled(
+            self._make_chunk_fn(self._chunk_size, "chunk"), _ARENA_ARGS)
+        if cfg.spec_k > 0:
+            # verify: one target chunk forward per batch bucket at the
+            # window K+1 ([last_committed, draft_1..draft_K]), so the
+            # accept length can vary without a new signature
+            self._verify_fns = {
+                b: self._compiled(self._make_verify_fn(b, cfg.spec_k + 1),
+                                  _ARENA_ARGS)
+                for b in cfg.batch_buckets}
+            self._d_decode_fns = {
+                b: self._compiled(self._make_decode_fn(b, draft=True),
+                                  _ARENA_ARGS)
+                for b in cfg.batch_buckets}
+            self._d_prefill_fns = {
+                s: self._compiled(self._make_prefill_fn(s, draft=True))
+                for s in cfg.prefill_buckets}
+            self._d_chunk_fn = self._compiled(self._make_chunk_fn(
+                self._chunk_size, "draft_chunk", draft=True), _ARENA_ARGS)
+
         self._waiting: List[Request] = []
         self._prefilling: List[_Sequence] = []
         self._running: List[_Sequence] = []
@@ -321,18 +399,26 @@ class LLMEngine:
         self._work = threading.Event()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._pump_probe: Optional[_health.LoopProbe] = None
+        self._step_no = 0
         self.counters: Dict[str, float] = {
+            # requests_failed as in the JAX engine's counters, where no
+            # path increments it either (shut-down requests are recorded
+            # as "failed" by the request recorder)
             "requests_submitted": 0, "requests_completed": 0,
-            "requests_timed_out": 0,
+            "requests_failed": 0, "requests_timed_out": 0,
             "tokens_generated": 0, "prefill_steps": 0,
             "decode_steps": 0, "prefill_ms": 0.0, "decode_ms": 0.0,
             "chunk_steps": 0, "spec_rounds": 0, "spec_proposed": 0,
             "spec_accepted": 0,
         }
-        # per-(kind, bucket) step-function calls
+        # per-bucket compiled_step calls: (kind, bucket) -> calls; every
+        # entry maps onto one graph (one step function)
         self.bucket_calls: Dict[Tuple[str, int], int] = {}
         # per-tenant rows: shed decisions and throughput per job label
         self.tenant_counters: Dict[str, Dict[str, float]] = {}
+        _metrics.DEFAULT_REGISTRY.register_callback(
+            "serve_llm", self._metrics_text)
 
     def _arena(self, model_cfg, num_pages: int) -> PagedKVCache:
         kvh = getattr(model_cfg, "n_kv_head", model_cfg.n_head)
@@ -342,44 +428,113 @@ class LLMEngine:
             device=self.device)
 
     # -- step functions ---------------------------------------------------
-    # `draft=True` runs the draft model on its own arena; the verify
-    # window is the target's `_chunk` at width K+1.
+    # One function per bucket, named as in the JAX engine; each closes
+    # over its model (weights captured by address) and takes the KV
+    # arena as live arguments (`_ARENA_ARGS`) where it reads the cache.
 
-    def _ints(self, values) -> torch.Tensor:
-        return torch.as_tensor(values, dtype=torch.long).to(self.device)
+    def _compiled(self, fn, live_argnums=()):
+        return compiled_step(fn, live_argnums=live_argnums,
+                             device=self.device, pool=self._graph_pool,
+                             on_retrace="error")
 
     def _model(self, draft: bool):
         if draft:
-            return self.d_net, self.draft_cfg, self.kv_d
-        return self.net, self.model_cfg, self.kv
+            return self.d_net, self.draft_cfg
+        return self.net, self.model_cfg
+
+    def _make_prefill_fn(self, bucket: int, draft: bool = False):
+        mod = self._mod
+        net, cfg = self._model(draft)
+
+        def fn(tokens, true_len):
+            return mod.prefill_step(net, cfg, tokens, true_len)
+
+        fn.__name__ = f"llm_{'draft_' if draft else ''}prefill_s{bucket}"
+        return fn
+
+    def _make_decode_fn(self, batch: int, draft: bool = False):
+        mod = self._mod
+        net, cfg = self._model(draft)
+
+        def fn(tokens, positions, k_pages, v_pages, page_table):
+            return mod.decode_step(net, cfg, tokens, positions, k_pages,
+                                   v_pages, page_table)
+
+        fn.__name__ = f"llm_{'draft_' if draft else ''}decode_b{batch}"
+        return fn
+
+    def _make_chunk_fn(self, width: int, tag: str, draft: bool = False):
+        mod = self._mod
+        net, cfg = self._model(draft)
+
+        def fn(tokens, start, k_pages, v_pages, page_table):
+            return mod.chunk_step(net, cfg, tokens, start, k_pages,
+                                  v_pages, page_table)
+
+        fn.__name__ = f"llm_{tag}_c{width}"
+        return fn
+
+    def _make_verify_fn(self, batch: int, width: int):
+        fn = self._make_chunk_fn(width, "verify")
+        fn.__name__ = f"llm_verify_b{batch}_c{width}"
+        return fn
+
+    def _step_fns(self):
+        """Every compiled step function of this engine."""
+        fns = [*self._prefill_fns.values(), *self._decode_fns.values(),
+               self._chunk_fn]
+        if self.kv_d is not None:
+            fns += [*self._verify_fns.values(),
+                    *self._d_prefill_fns.values(),
+                    *self._d_decode_fns.values(), self._d_chunk_fn]
+        return fns
+
+    # Dispatch. Integer inputs go in as host tensors, which a graph
+    # copies through its pinned staging buffers; the arena goes in live.
+
+    @staticmethod
+    def _ints(values) -> torch.Tensor:
+        return torch.as_tensor(values, dtype=torch.long)
+
+    def _run(self, fn, *args):
+        return fn(*args)
 
     def _prefill(self, tokens, true_len, draft: bool = False):
-        net, cfg, _ = self._model(draft)
-        return self._mod.prefill_step(net, cfg, self._ints(tokens),
-                                      self._ints(true_len))
+        fns = self._d_prefill_fns if draft else self._prefill_fns
+        return self._run(fns[len(tokens[0])], self._ints(tokens),
+                         self._ints(true_len))
 
     def _decode(self, tokens, positions, page_table, draft: bool = False):
-        net, cfg, kv = self._model(draft)
-        return self._mod.decode_step(
-            net, cfg, self._ints(tokens), self._ints(positions),
-            kv.k_pages, kv.v_pages, self._ints(page_table))
+        fns = self._d_decode_fns if draft else self._decode_fns
+        kv = self.kv_d if draft else self.kv
+        return self._run(fns[len(tokens)], self._ints(tokens),
+                         self._ints(positions), kv.k_pages, kv.v_pages,
+                         self._ints(page_table))
 
     def _chunk(self, tokens, start, page_table, draft: bool = False):
-        net, cfg, kv = self._model(draft)
-        return self._mod.chunk_step(
-            net, cfg, self._ints(tokens), self._ints(start), kv.k_pages,
-            kv.v_pages, self._ints(page_table))
+        fn = self._d_chunk_fn if draft else self._chunk_fn
+        kv = self.kv_d if draft else self.kv
+        return self._run(fn, self._ints(tokens), self._ints(start),
+                         kv.k_pages, kv.v_pages, self._ints(page_table))
+
+    def _verify(self, tokens, start, page_table):
+        return self._run(self._verify_fns[len(tokens)], self._ints(tokens),
+                         self._ints(start), self.kv.k_pages,
+                         self.kv.v_pages, self._ints(page_table))
 
     def _note_call(self, kind: str, bucket: int):
-        """Per-(kind, bucket) dispatch counter."""
+        """Per-(kind, bucket) dispatch counter: one row per graph
+        actually exercised."""
         with self._lock:
             key = (kind, bucket)
             self.bucket_calls[key] = self.bucket_calls.get(key, 0) + 1
 
     def warmup(self):
-        """Run every bucket once up front (first-use costs: the kernel
-        build, library handles, allocator growth): the draft's buckets
-        and the verify window too when speculation is on."""
+        """Capture every bucket up front (on the CPU: run it once), so
+        steady state is all cache hits: the target's prefill, decode and
+        chunk buckets and, with speculation on, the verify windows and
+        the draft's prefill, decode and chunk buckets. Captures run on
+        the caller's thread; the pump thread replays."""
         with torch.inference_mode():
             for draft in (False, True) if self.kv_d is not None else \
                     (False,):
@@ -394,8 +549,8 @@ class LLMEngine:
             if self.kv_d is not None:
                 k1 = self.config.spec_k + 1
                 for b in self.config.batch_buckets:
-                    self._chunk([[0] * k1] * b, [0] * b,
-                                [[0] * self.max_pages_per_seq] * b)
+                    self._verify([[0] * k1] * b, [0] * b,
+                                 [[0] * self.max_pages_per_seq] * b)
 
     # -- submission -------------------------------------------------------
 
@@ -431,6 +586,9 @@ class LLMEngine:
         req = Request(prompt, max_new_tokens, deadline,
                       request_id or f"llm-{next(_req_counter)}",
                       tenant=tenant)
+        # a replica's serving(ctx) region is live during submit; the pump
+        # thread reads the ctx back off the request
+        req.ctx = _rr.current()
         with self._lock:
             self.counters["requests_submitted"] += 1
             self._tenant_row(tenant)["requests_submitted"] += 1
@@ -445,6 +603,7 @@ class LLMEngine:
         `max_prefills_per_step` prompts, then one decode pass over the
         running set. Returns False when there was nothing to do."""
         with self._step_lock, torch.inference_mode():
+            t0 = time.perf_counter()
             prefill_ms = decode_ms = 0.0
             tokens_out = 0
             advanced = False
@@ -471,10 +630,18 @@ class LLMEngine:
                 decode_ms += (time.perf_counter() - t1) * 1e3
             did = bool(tokens_out) or advanced
             if did:
+                self._step_no += 1
                 with self._lock:
                     self.counters["prefill_ms"] += prefill_ms
                     self.counters["decode_ms"] += decode_ms
                     self.counters["tokens_generated"] += tokens_out
+                if _sp.enabled():
+                    _sp.record_step(
+                        self._step_no,
+                        (time.perf_counter() - t0) * 1e3,
+                        tokens=tokens_out, prefill_ms=prefill_ms,
+                        decode_ms=decode_ms,
+                        running=len(self._running))
             return did
 
     def _shed_expired(self):
@@ -492,6 +659,7 @@ class LLMEngine:
             self._waiting = keep
         for req in shed:
             req._fail("deadline passed before admission")
+            self._emit_request_record(req, "timed_out")
 
     def _admit_one(self) -> Optional[_Sequence]:
         """Pop the oldest waiting request whose worst-case page demand
@@ -506,6 +674,11 @@ class LLMEngine:
                     self.config.max_running:
                 return None
             req = self._waiting[0]
+            # the queue phase ends at the FIRST admission consideration:
+            # time spent retrying the page reservation after this point
+            # is admission wait, not queue wait
+            if req.first_consider_ts is None:
+                req.first_consider_ts = time.monotonic()
             need = self.kv.pages_for_tokens(
                 len(req.prompt) + req.max_new_tokens)
             cached = 0
@@ -527,6 +700,7 @@ class LLMEngine:
                 except OutOfPagesError:
                     self.kv.free(pages, req)  # roll the target's back
                     return None
+            req.admit_ts = time.monotonic()
             self._waiting.pop(0)
             seq = _Sequence(req, pages, pos=0, cached=cached,
                             d_pages=d_pages)
@@ -547,6 +721,7 @@ class LLMEngine:
         s = len(req.prompt)
         emitted = 0
         if seq.prefilled < s:
+            t0 = time.perf_counter()
             oneshot = (seq.prefilled == 0
                        and s <= max(self.config.prefill_buckets)
                        and (not self.config.prefill_chunk
@@ -555,7 +730,11 @@ class LLMEngine:
                 emitted = self._prefill_oneshot(seq)
             else:
                 emitted = self._chunk_advance(seq)
+            req.prefill_ms += (time.perf_counter() - t0) * 1e3
         elif self.kv_d is not None and seq.d_prefilled < s:
+            # after the first token: this time lies in the request's
+            # decode span, so it is not prefill time (the JAX engine adds
+            # it to both, and its phases then sum past the total)
             self._draft_prefill_advance(seq)
         ready = seq.prefilled >= s and \
             (self.kv_d is None or seq.d_prefilled >= s)
@@ -581,18 +760,23 @@ class LLMEngine:
         req = seq.req
         s = len(req.prompt)
         bucket = min(b for b in self.config.prefill_buckets if b >= s)
-        toks = [req.prompt + [0] * (bucket - s)]
-        self._note_call("prefill", bucket)
-        next_logits, k, v = self._prefill(toks, [s])
-        # rows at and past s are padding: never cached
-        self.kv.write_prefill(seq.pages, k[0], v[0], s)
-        seq.prefilled = s
-        seq.pos = s
-        if self.prefix is not None:
-            self.prefix.insert(req.prompt, seq.pages)
-        with self._lock:
-            self.counters["prefill_steps"] += 1
-        return self._emit_first(seq, next_logits[0])
+        attrs: Dict[str, Any] = {"bucket": bucket, "tokens_in": s}
+        if req.ctx:
+            attrs["req_id"] = req.ctx["req_id"]
+            attrs["flow_id"] = f"req:{req.ctx['req_id']}"
+        with _tracing.span("llm.prefill", kind="consumer", attrs=attrs):
+            self._note_call("prefill", bucket)
+            next_logits, k, v = self._prefill(
+                [req.prompt + [0] * (bucket - s)], [s])
+            # rows at and past s are padding: never cached
+            self.kv.write_prefill(seq.pages, k[0], v[0], s)
+            seq.prefilled = s
+            seq.pos = s
+            if self.prefix is not None:
+                self.prefix.insert(req.prompt, seq.pages)
+            with self._lock:
+                self.counters["prefill_steps"] += 1
+            return self._emit_first(seq, next_logits[0])
 
     def _chunk_advance(self, seq: _Sequence) -> int:
         """One chunk: forward the next `_chunk_size` prompt tokens
@@ -605,22 +789,29 @@ class LLMEngine:
         take = min(c, s - seq.prefilled)
         toks = req.prompt[seq.prefilled:seq.prefilled + take]
         table = seq.pages + [0] * (self.max_pages_per_seq - len(seq.pages))
-        self._note_call("chunk", c)
-        logits, k, v = self._chunk([toks + [0] * (c - take)],
-                                   [seq.prefilled], [table])
-        self.kv.write_prefill(seq.pages, k[0], v[0], take,
-                              start=seq.prefilled)
-        seq.prefilled += take
-        with self._lock:
-            self.counters["chunk_steps"] += 1
-        if seq.prefilled < s:
-            return 0
-        seq.pos = s
-        if self.prefix is not None:
-            self.prefix.insert(req.prompt, seq.pages)
-        with self._lock:
-            self.counters["prefill_steps"] += 1
-        return self._emit_first(seq, logits[0, take - 1])
+        attrs: Dict[str, Any] = {"chunk": c, "start": seq.prefilled,
+                                 "tokens_in": take}
+        if req.ctx:
+            attrs["req_id"] = req.ctx["req_id"]
+            attrs["flow_id"] = f"req:{req.ctx['req_id']}"
+        with _tracing.span("llm.prefill_chunk", kind="consumer",
+                           attrs=attrs):
+            self._note_call("chunk", c)
+            logits, k, v = self._chunk([toks + [0] * (c - take)],
+                                       [seq.prefilled], [table])
+            self.kv.write_prefill(seq.pages, k[0], v[0], take,
+                                  start=seq.prefilled)
+            seq.prefilled += take
+            with self._lock:
+                self.counters["chunk_steps"] += 1
+            if seq.prefilled < s:
+                return 0
+            seq.pos = s
+            if self.prefix is not None:
+                self.prefix.insert(req.prompt, seq.pages)
+            with self._lock:
+                self.counters["prefill_steps"] += 1
+            return self._emit_first(seq, logits[0, take - 1])
 
     def _draft_prefill_advance(self, seq: _Sequence):
         """Give the draft model this sequence's prompt in its own KV
@@ -735,7 +926,7 @@ class LLMEngine:
         # positions pos..pos+K in one window
         pad = bb - n
         self._note_call("verify", bb)
-        logits, new_k, new_v = self._chunk(
+        logits, new_k, new_v = self._verify(
             [[seq.last_token] + proposals[i][:K]
              for i, seq in enumerate(runs)] + [[0] * (K + 1)] * pad,
             [seq.pos for seq in runs] + [0] * pad,
@@ -804,19 +995,65 @@ class LLMEngine:
             row["requests_completed"] += 1
             row["tokens_generated"] += len(seq.req.tokens)
         seq.req._finish(seq.req.finish_reason or "length")
+        self._emit_request_record(seq.req, "ok")
+
+    def _emit_request_record(self, req: Request, outcome: str):
+        """Fold one finished request into the request recorder: engine
+        role, authoritative phase split. The monotonic stamps submit ->
+        first_consider (queue) -> admit (admission) -> first_token
+        (prefill) -> last_token (decode) -> finish tile the end-to-end
+        time, so the phases sum to the total."""
+        if not _rr.enabled():
+            return
+        end = req.finish_ts or time.monotonic()
+        first_consider = req.first_consider_ts or end
+        admit = req.admit_ts or first_consider
+        n = len(req.tokens)
+        ttft_ms = decode_ms = None
+        tpot_ms = None
+        if req.first_token_ts is not None:
+            ttft_ms = (req.first_token_ts - req.submit_ts) * 1e3
+            decode_ms = (req.last_token_ts - req.first_token_ts) * 1e3
+            if n > 1 and decode_ms > 0:
+                tpot_ms = decode_ms / (n - 1)
+        _rr.record_engine(
+            req.ctx,
+            ts=req.submit_wall,
+            total_ms=(end - req.submit_ts) * 1e3,
+            queue_ms=(first_consider - req.submit_ts) * 1e3,
+            admission_ms=max(0.0, (admit - first_consider) * 1e3),
+            prefill_ms=req.prefill_ms,
+            decode_ms=decode_ms or 0.0,
+            ttft_ms=ttft_ms, tpot_ms=tpot_ms,
+            tokens_in=len(req.prompt), tokens_out=n,
+            outcome=outcome, job=req.tenant,
+            finish_reason=req.finish_reason or req.error or "")
 
     # -- pump thread ------------------------------------------------------
+
+    def _probe_name(self) -> str:
+        return f"llm_engine_pump_{id(self) & 0xffffff:06x}"
 
     def start(self):
         if self._thread is not None:
             return
         self._stop.clear()
+        # deadman probe: one beat per pump pass, backlog read lock-free
+        # (bare len() under the GIL: the watchdog must never need the
+        # engine lock, or it could not fire while that lock is stuck)
+        self._pump_probe = _health.watch_loop(
+            self._probe_name(),
+            backlog_fn=lambda: (len(self._waiting)
+                                + len(self._prefilling)
+                                + len(self._running)))
+        _health.ensure_watchdog(source="SERVE_LLM")
         self._thread = threading.Thread(
             target=self._pump, name="llm-engine", daemon=True)
         self._thread.start()
 
     def _pump(self):
         while not self._stop.is_set():
+            self._pump_probe.beat()
             if not self.step():
                 self._work.clear()
                 self._work.wait(0.02)
@@ -827,6 +1064,7 @@ class LLMEngine:
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
+            _health.unwatch_loop(self._probe_name())
 
     # -- lifecycle / introspection ---------------------------------------
 
@@ -864,20 +1102,29 @@ class LLMEngine:
             self.kv_d.assert_quiesced()
 
     def shutdown(self) -> int:
-        """Stop the pump and drop the KV arenas (the draft's too);
-        returns leaked pages of both (0 after a clean quiesce). Waiting
-        requests are failed."""
+        """Stop the pump, drop the KV arenas (the draft's too) and
+        release the engine's graphs; returns leaked pages of both arenas
+        (0 after a clean quiesce). Waiting requests are failed (and
+        recorded so), and the `serve_llm` metrics callback is blanked."""
         self.stop()
         with self._lock:
             waiting, self._waiting = self._waiting, []
         for req in waiting:
             req._fail("engine shut down")
+            self._emit_request_record(req, "failed")
+        _metrics.DEFAULT_REGISTRY.register_callback(
+            "serve_llm", lambda: "")
         if self.prefix is not None:
             # cached prefixes are reusable state, not leaks: release
             # them so close() reports only true sequence leaks
             self.prefix.drain()
         leaked = self.kv_d.close() if self.kv_d is not None else 0
-        return leaked + self.kv.close()
+        leaked += self.kv.close()
+        # the graphs hold their static buffers and pool memory, and the
+        # cache holds the step functions (and so the weights) until evicted
+        for fn in self._step_fns():
+            fn.cache.evict(fn)
+        return leaked
 
     def metrics(self) -> Dict[str, Any]:
         with self._lock:
@@ -892,7 +1139,7 @@ class LLMEngine:
                 kv_page_utilization=self.kv.utilization(),
                 model=self.model_name,
                 spec_k=self.config.spec_k,
-                bucket_calls={
+                compiled_step_calls={
                     f"{kind}:{bucket}": calls
                     for (kind, bucket), calls in
                     sorted(self.bucket_calls.items())},
@@ -915,3 +1162,73 @@ class LLMEngine:
             out["spec_mean_accept"] = (out["spec_accepted"]
                                        / out["spec_rounds"])
         return out
+
+    def _metrics_text(self) -> str:
+        m = self.metrics()
+        lines = [
+            "# TYPE serve_llm_running_seqs gauge",
+            f"serve_llm_running_seqs {m['running']}",
+            "# TYPE serve_llm_waiting_seqs gauge",
+            f"serve_llm_waiting_seqs {m['queue_depth']}",
+            "# TYPE serve_llm_kv_pages_live gauge",
+            f"serve_llm_kv_pages_live {m['kv_pages_live']}",
+            "# TYPE serve_llm_kv_page_utilization gauge",
+            f"serve_llm_kv_page_utilization "
+            f"{m['kv_page_utilization']:.6f}",
+            "# TYPE serve_llm_tokens_generated_total counter",
+            f"serve_llm_tokens_generated_total "
+            f"{int(m['tokens_generated'])}",
+            "# TYPE serve_llm_requests_completed_total counter",
+            f"serve_llm_requests_completed_total "
+            f"{int(m['requests_completed'])}",
+            "# TYPE serve_llm_requests_timed_out_total counter",
+            f"serve_llm_requests_timed_out_total "
+            f"{int(m['requests_timed_out'])}",
+            "# TYPE serve_llm_prefill_ms_total counter",
+            f"serve_llm_prefill_ms_total {m['prefill_ms']:.3f}",
+            "# TYPE serve_llm_decode_ms_total counter",
+            f"serve_llm_decode_ms_total {m['decode_ms']:.3f}",
+        ]
+        if "prefix_cache_hit_tokens" in m:
+            lines += [
+                "# TYPE serve_llm_prefix_cache_hit_tokens_total counter",
+                f"serve_llm_prefix_cache_hit_tokens_total "
+                f"{int(m['prefix_cache_hit_tokens'])}",
+                "# TYPE serve_llm_prefix_cache_miss_tokens_total counter",
+                f"serve_llm_prefix_cache_miss_tokens_total "
+                f"{int(m['prefix_cache_miss_tokens'])}",
+                "# TYPE serve_llm_prefix_cache_entries gauge",
+                f"serve_llm_prefix_cache_entries "
+                f"{int(m['prefix_cache_entries'])}",
+                "# TYPE serve_llm_kv_pages_cached gauge",
+                f"serve_llm_kv_pages_cached "
+                f"{int(m['kv_pages_cached'])}",
+            ]
+        if m.get("spec_k"):
+            lines += [
+                "# TYPE serve_llm_spec_proposed_total counter",
+                f"serve_llm_spec_proposed_total "
+                f"{int(m['spec_proposed'])}",
+                "# TYPE serve_llm_spec_accepted_total counter",
+                f"serve_llm_spec_accepted_total "
+                f"{int(m['spec_accepted'])}",
+                "# TYPE serve_llm_spec_rounds_total counter",
+                f"serve_llm_spec_rounds_total "
+                f"{int(m['spec_rounds'])}",
+            ]
+        if m.get("compiled_step_calls"):
+            lines.append(
+                "# TYPE serve_llm_compiled_step_calls_total counter")
+            for key, calls in m["compiled_step_calls"].items():
+                kind, bucket = key.rsplit(":", 1)
+                lines.append(
+                    f'serve_llm_compiled_step_calls_total'
+                    f'{{kind="{kind}",bucket="{bucket}"}} {calls}')
+        # per-tenant rows: shed decisions + throughput per job label
+        for tenant, row in sorted(m.get("tenants", {}).items()):
+            for key in ("requests_submitted", "requests_completed",
+                        "requests_timed_out", "tokens_generated"):
+                lines.append(
+                    f'serve_llm_{key}_total{{job="{tenant}"}} '
+                    f"{int(row[key])}")
+        return "\n".join(lines) + "\n"

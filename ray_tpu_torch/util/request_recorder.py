@@ -1,0 +1,639 @@
+"""Request-path flight recorder: bounded per-request serving telemetry.
+
+The port's own copy of `ray_tpu/util/request_recorder.py`. Every serve
+request gets a ``RequestRecord``: the *engine* role carries the
+server-side phase split (queue wait, admission wait for KV page
+reservation, prefill ms, decode span, TTFT, TPOT), the *client* role
+what a caller observed. A request context (``new_context`` at the
+handle, ``adopt_context`` for an id minted elsewhere) rides into the
+engine through ``serving(ctx)`` / ``current()``. Records land in a
+bounded ring (``RAY_TPU_REQ_RING``, default 1024; oldest evicted).
+
+Export surfaces, as in the JAX package: ``metrics_text()`` is a
+scrape-time callback on the port's ``DEFAULT_REGISTRY``
+(``serve_request_phase_ms{phase=,deployment=,job=}``, ``serve_ttft_ms``,
+``serve_tpot_ms`` histograms, folded at scrape time); with
+``RAY_TPU_TRACE=1`` records shed to ``requests-<pid>.jsonl`` shards
+beside the span shards (``collect()``, ``merge_by_request()``,
+``to_chrome()``); ``summary()``, ``slowest()`` and ``format_table()``
+render them.
+
+Recording never raises and never blocks the token path: per-token cost
+is one monotonic read; the histogram fold happens at scrape time.
+"""
+
+from __future__ import annotations
+
+import bisect
+import collections
+import contextlib
+import contextvars
+import glob
+import itertools
+import json
+import os
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from typing import Any, Dict, Iterator, List, Optional
+
+from ray_tpu_torch.util import tracing as _tracing
+
+# -- knobs (cached at import; refresh() re-reads) ------------------------
+
+
+def _env_enabled() -> bool:
+    return os.environ.get("RAY_TPU_REQ_RECORDER", "1").lower() \
+        not in ("0", "false", "off", "no")
+
+
+def _env_capacity() -> int:
+    try:
+        return max(1, int(os.environ.get("RAY_TPU_REQ_RING", "1024")))
+    except ValueError:
+        return 1024
+
+
+def _env_sample() -> int:
+    """Record 1 in N requests (default 1 = every request; a larger N
+    bounds the recorder's cost at high req/s)."""
+    try:
+        return max(1, int(os.environ.get("RAY_TPU_REQ_SAMPLE", "1")))
+    except ValueError:
+        return 1
+
+
+_ENABLED = _env_enabled()
+_SAMPLE = _env_sample()
+
+
+def enabled() -> bool:
+    return _ENABLED
+
+
+def set_enabled(value: bool) -> None:
+    global _ENABLED
+    _ENABLED = bool(value)
+
+
+def refresh() -> None:
+    global _ENABLED, _SAMPLE
+    _ENABLED = _env_enabled()
+    _SAMPLE = _env_sample()
+    _RING.resize(_env_capacity())
+
+
+# -- the per-request record ----------------------------------------------
+
+PHASES = ("queue_ms", "admission_ms", "prefill_ms", "decode_ms")
+
+OUTCOMES = ("ok", "timed_out", "failed", "failed_over")
+
+
+@dataclass
+class RequestRecord:
+    req_id: str
+    role: str                     # "client" | "engine"
+    deployment: str = ""
+    job: str = "none"
+    ts: float = 0.0               # wall-clock submit (unix seconds)
+    total_ms: float = 0.0         # end-to-end as this role observed it
+    queue_ms: float = 0.0         # waiting before any work started
+    admission_ms: float = 0.0     # KV page reservation wait (engine)
+    prefill_ms: float = 0.0
+    decode_ms: float = 0.0        # first-token -> last-token span
+    ttft_ms: Optional[float] = None
+    tpot_ms: Optional[float] = None   # per-token decode latency
+    tokens_in: int = 0
+    tokens_out: int = 0
+    replayed_tokens: int = 0      # failover replay chunks (never timed)
+    outcome: str = "ok"
+    attrs: Dict[str, Any] = field(default_factory=dict)
+
+    def phase_sum_ms(self) -> float:
+        return (self.queue_ms + self.admission_ms + self.prefill_ms
+                + self.decode_ms)
+
+    def as_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "req_id": self.req_id, "role": self.role,
+            "deployment": self.deployment, "job": self.job,
+            "ts": self.ts, "total_ms": round(self.total_ms, 3),
+            "tokens_in": self.tokens_in, "tokens_out": self.tokens_out,
+            "outcome": self.outcome,
+        }
+        for ph in PHASES:
+            d[ph] = round(getattr(self, ph), 3)
+        if self.ttft_ms is not None:
+            d["ttft_ms"] = round(self.ttft_ms, 3)
+        if self.tpot_ms is not None:
+            d["tpot_ms"] = round(self.tpot_ms, 3)
+        if self.replayed_tokens:
+            d["replayed_tokens"] = self.replayed_tokens
+        if self.attrs:
+            d["attrs"] = dict(self.attrs)
+        return d
+
+
+class RequestRing:
+    """Bounded ring of RequestRecord (deque.append is GIL-atomic)."""
+
+    def __init__(self, capacity: Optional[int] = None):
+        self._ring: collections.deque = collections.deque(
+            maxlen=capacity or _env_capacity())
+        self.total_recorded = 0
+
+    @property
+    def capacity(self) -> int:
+        return self._ring.maxlen or 0
+
+    def resize(self, capacity: int) -> None:
+        if capacity != self._ring.maxlen:
+            self._ring = collections.deque(self._ring, maxlen=capacity)
+
+    def append(self, rec: RequestRecord) -> None:
+        self._ring.append(rec)
+        self.total_recorded += 1
+
+    def recent(self, n: Optional[int] = None) -> List[RequestRecord]:
+        items = list(self._ring)
+        return items if n is None else items[-n:]
+
+    def clear(self) -> None:
+        self._ring.clear()
+        self.total_recorded = 0
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+
+_RING = RequestRing()
+
+
+def ring() -> RequestRing:
+    return _RING
+
+
+# -- request context (minted at the handle, carried to the engine) -------
+
+_serving: contextvars.ContextVar[Optional[dict]] = contextvars.ContextVar(
+    "ray_tpu_serving_ctx", default=None)
+
+_sample_counter = 0
+
+
+def _should_sample() -> bool:
+    global _sample_counter
+    _sample_counter += 1
+    return _sample_counter % _SAMPLE == 0
+
+
+# ids are minted once per request on the serving hot path: a random
+# per-process prefix plus a GIL-atomic counter is ~8x cheaper than a
+# uuid4 per request and still unique across the cluster's processes
+_ID_PREFIX = uuid.uuid4().hex[:8]
+_id_counter = itertools.count()
+
+
+def mint_request_id() -> str:
+    return f"{_ID_PREFIX}{next(_id_counter) & 0xffffffff:08x}"
+
+
+def new_context(deployment: str, job: str = "none") -> dict:
+    """Client-side: mint the request's identity at submit time. The
+    ``sampled`` bit is decided ONCE here so the client and engine
+    records of one request agree on whether it exists."""
+    return {"req_id": mint_request_id(), "deployment": deployment,
+            "job": job, "sampled": _ENABLED and _should_sample()}
+
+
+def adopt_context(req_id: str, deployment: str,
+                  job: str = "none") -> dict:
+    """Wrap an id minted elsewhere (the native dispatch ring mints trace
+    ids in C) into a recorder context. The sampling decision still
+    happens here — native mint is identity-only — so natively-dispatched
+    requests stitch into the same records/timeline as Python-path ones."""
+    return {"req_id": req_id, "deployment": deployment,
+            "job": job, "sampled": _ENABLED and _should_sample()}
+
+
+@contextlib.contextmanager
+def serving(ctx: Optional[dict]) -> Iterator[Optional[dict]]:
+    """Replica-side: enter the request's context so downstream code
+    (engine admission) can pick it up without argument threading."""
+    if ctx is None:
+        yield None
+        return
+    token = _serving.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _serving.reset(token)
+
+
+def current() -> Optional[dict]:
+    return _serving.get()
+
+
+# -- scrape-time histogram families (registry-callback sourced) ----------
+
+# phase/TTFT/TPOT latencies land in fixed-boundary buckets folded at
+# record time; the Prometheus text is rendered at scrape time. No
+# Counter/Histogram objects: one request = one short lock hold here.
+BUCKET_BOUNDS_MS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+                    500.0, 1000.0, 2500.0, 5000.0)
+
+_hist_lock = threading.Lock()
+# family -> label-tuple -> [bucket counts..., +Inf] ; sums/counts beside
+_hist: Dict[str, Dict[tuple, List[int]]] = {}
+_hist_sum: Dict[str, Dict[tuple, float]] = {}
+_hist_count: Dict[str, Dict[tuple, int]] = {}
+_outcomes: Dict[tuple, int] = {}
+
+# histogram folds are DEFERRED off the request path: _record only
+# appends (deque appends are GIL-atomic) and the folds run at scrape
+# time. Bounded like everything else here — in a process nobody
+# scrapes, the families reflect the trailing maxlen records.
+_pending: collections.deque = collections.deque(maxlen=4096)
+
+
+def _fold(family: str, labels: tuple, value_ms: float) -> None:
+    fam = _hist.setdefault(family, {})
+    row = fam.get(labels)
+    if row is None:
+        row = fam[labels] = [0] * (len(BUCKET_BOUNDS_MS) + 1)
+    # values past the last bound land in the trailing +Inf slot
+    row[bisect.bisect_left(BUCKET_BOUNDS_MS, value_ms)] += 1
+    s = _hist_sum.setdefault(family, {})
+    s[labels] = s.get(labels, 0.0) + value_ms
+    c = _hist_count.setdefault(family, {})
+    c[labels] = c.get(labels, 0) + 1
+
+
+def _fold_record(rec: RequestRecord) -> None:
+    """Fold one record into the histogram families. Caller holds
+    ``_hist_lock``."""
+    _outcomes[(rec.outcome,)] = _outcomes.get((rec.outcome,), 0) + 1
+    # phase histograms come from the engine role (the authoritative
+    # split); client records contribute the caller-observed
+    # TTFT/TPOT — under the serve stack both exist per request, and
+    # a bare-engine run still fills every family.
+    base = (rec.deployment, rec.job)
+    if rec.role == "engine":
+        for ph in PHASES:
+            _fold("serve_request_phase_ms",
+                  (ph[:-3],) + base, getattr(rec, ph))
+    if rec.ttft_ms is not None:
+        _fold("serve_ttft_ms", base, rec.ttft_ms)
+    if rec.tpot_ms is not None:
+        _fold("serve_tpot_ms", base, rec.tpot_ms)
+
+
+def _drain_pending() -> None:
+    """Fold everything recorded since the last scrape (scrape-time
+    work: the request path only appends)."""
+    while True:
+        try:
+            rec = _pending.popleft()
+        except IndexError:
+            return
+        with _hist_lock:
+            _fold_record(rec)
+
+
+def _record(rec: RequestRecord) -> RequestRecord:
+    _RING.append(rec)
+    _pending.append(rec)
+    _write_shard(rec)
+    return rec
+
+
+def record_client(ctx: dict, *, ts: float, total_ms: float,
+                  queue_ms: float = 0.0,
+                  ttft_ms: Optional[float] = None,
+                  tpot_ms: Optional[float] = None,
+                  tokens_out: int = 0, replayed_tokens: int = 0,
+                  outcome: str = "ok",
+                  **attrs) -> Optional[RequestRecord]:
+    """One record for what the CALLER observed (handle side)."""
+    if not _ENABLED or not ctx.get("sampled"):
+        return None
+    return _record(RequestRecord(
+        req_id=ctx["req_id"], role="client",
+        deployment=ctx.get("deployment", ""),
+        job=ctx.get("job", "none"), ts=ts, total_ms=total_ms,
+        queue_ms=queue_ms, ttft_ms=ttft_ms, tpot_ms=tpot_ms,
+        tokens_out=tokens_out, replayed_tokens=replayed_tokens,
+        outcome=outcome, attrs=attrs))
+
+
+def record_engine(ctx: Optional[dict], *, ts: float, total_ms: float,
+                  queue_ms: float = 0.0, admission_ms: float = 0.0,
+                  prefill_ms: float = 0.0, decode_ms: float = 0.0,
+                  ttft_ms: Optional[float] = None,
+                  tpot_ms: Optional[float] = None,
+                  tokens_in: int = 0, tokens_out: int = 0,
+                  outcome: str = "ok", job: Optional[str] = None,
+                  **attrs) -> Optional[RequestRecord]:
+    """One record for the ENGINE-side phase split. ``ctx`` is the
+    propagated request context (None for direct engine use, without the
+    serve stack; such records mint their
+    own id and sample independently, attributed to ``job`` when
+    given)."""
+    if not _ENABLED:
+        return None
+    if ctx is None:
+        if not _should_sample():
+            return None
+        ctx = {"req_id": mint_request_id(), "deployment": "engine",
+               "job": job or "none", "sampled": True}
+    elif not ctx.get("sampled"):
+        return None
+    return _record(RequestRecord(
+        req_id=ctx["req_id"], role="engine",
+        deployment=ctx.get("deployment", "engine"),
+        job=ctx.get("job", "none"), ts=ts, total_ms=total_ms,
+        queue_ms=queue_ms, admission_ms=admission_ms,
+        prefill_ms=prefill_ms, decode_ms=decode_ms, ttft_ms=ttft_ms,
+        tpot_ms=tpot_ms, tokens_in=tokens_in, tokens_out=tokens_out,
+        outcome=outcome, attrs=attrs))
+
+
+def clear() -> None:
+    global _sample_counter
+    _RING.clear()
+    _pending.clear()
+    _sample_counter = 0
+    with _hist_lock:
+        _hist.clear()
+        _hist_sum.clear()
+        _hist_count.clear()
+        _outcomes.clear()
+
+
+# -- metrics export ------------------------------------------------------
+
+def _render_hist(name: str, label_keys: tuple, lines: List[str]) -> None:
+    fam = _hist.get(name)
+    if not fam:
+        return
+    lines.append(f"# TYPE {name} histogram")
+    for labels, row in sorted(fam.items()):
+        pairs = ",".join(f'{k}="{v}"'
+                         for k, v in zip(label_keys, labels))
+        cumulative = 0
+        for i, bound in enumerate(BUCKET_BOUNDS_MS):
+            cumulative += row[i]
+            lines.append(
+                f'{name}_bucket{{{pairs},le="{bound}"}} {cumulative}')
+        lines.append(
+            f'{name}_bucket{{{pairs},le="+Inf"}} '
+            f"{cumulative + row[-1]}")
+        lines.append(f"{name}_sum{{{pairs}}} "
+                     f"{round(_hist_sum[name][labels], 3)}")
+        lines.append(f"{name}_count{{{pairs}}} "
+                     f"{_hist_count[name][labels]}")
+
+
+def metrics_text() -> str:
+    """Prometheus exposition chunk, computed at scrape time (registered
+    as a DEFAULT_REGISTRY callback below)."""
+    _drain_pending()
+    lines = [
+        "# TYPE serve_requests_recorded_total counter",
+        f"serve_requests_recorded_total {_RING.total_recorded}",
+        "# TYPE serve_request_ring_size gauge",
+        f"serve_request_ring_size {len(_RING)}",
+    ]
+    with _hist_lock:
+        if _outcomes:
+            lines.append("# TYPE serve_request_outcomes_total counter")
+            for (outcome,), n in sorted(_outcomes.items()):
+                lines.append(
+                    f'serve_request_outcomes_total{{outcome="{outcome}"}}'
+                    f" {n}")
+        _render_hist("serve_request_phase_ms",
+                     ("phase", "deployment", "job"), lines)
+        _render_hist("serve_ttft_ms", ("deployment", "job"), lines)
+        _render_hist("serve_tpot_ms", ("deployment", "job"), lines)
+    return "\n".join(lines) + "\n"
+
+
+# -- shard persistence (offline post-mortem + unified timeline) ----------
+
+_shard_lock = threading.Lock()
+_shard_file = None
+
+
+def _reset_shard_writer() -> None:
+    # fork safety: same rationale as tracing/_file — the just-forked
+    # child is single-threaded, and taking the inherited lock could
+    # deadlock on a holder that no longer exists.
+    global _shard_file
+    _shard_file = None
+
+
+if hasattr(os, "register_at_fork"):
+    os.register_at_fork(after_in_child=_reset_shard_writer)
+
+
+def _write_shard(rec: RequestRecord) -> None:
+    if not _tracing.enabled():
+        return
+    global _shard_file
+    if _shard_file is None:
+        with _shard_lock:
+            if _shard_file is None:
+                try:
+                    os.makedirs(_tracing.trace_dir(), exist_ok=True)
+                    _shard_file = open(
+                        os.path.join(_tracing.trace_dir(),
+                                     f"requests-{os.getpid()}.jsonl"),
+                        "a", buffering=1)
+                except OSError:
+                    return
+    try:
+        d = rec.as_dict()
+        d["pid"] = os.getpid()
+        _shard_file.write(json.dumps(d) + "\n")
+    except (OSError, TypeError, ValueError):
+        pass
+
+
+def collect(path: Optional[str] = None) -> List[Dict[str, Any]]:
+    """Merge every process's request-record shard (sorted by ts)."""
+    records = []
+    for fn in sorted(glob.glob(os.path.join(
+            path or _tracing.trace_dir(), "requests-*.jsonl"))):
+        try:
+            with open(fn) as f:
+                for line in f:
+                    line = line.strip()
+                    if line:
+                        records.append(json.loads(line))
+        except (OSError, json.JSONDecodeError):
+            continue
+    records.sort(key=lambda r: r.get("ts", 0))
+    return records
+
+
+def merge_by_request(records: List[Dict[str, Any]]
+                     ) -> List[Dict[str, Any]]:
+    """Join the client and engine rows of each request into ONE logical
+    record: engine phases are authoritative for the server-side split,
+    the client row contributes the caller-observed total/TTFT/outcome
+    (mid-stream failover stitches the survivor's replay into the same
+    record — both halves share the req_id minted at the handle)."""
+    by_id: Dict[str, Dict[str, Any]] = {}
+    order: List[str] = []
+    for r in records:
+        rid = r.get("req_id", "?")
+        m = by_id.get(rid)
+        if m is None:
+            m = by_id[rid] = {"req_id": rid, "ts": r.get("ts", 0)}
+            order.append(rid)
+        role = r.get("role", "engine")
+        m[role] = r
+        if role == "engine":
+            for ph in PHASES:
+                m[ph] = r.get(ph, 0.0)
+            m.setdefault("deployment", r.get("deployment", ""))
+            m.setdefault("job", r.get("job", "none"))
+            m["tokens_out"] = r.get("tokens_out", 0)
+        else:
+            m["deployment"] = r.get("deployment", m.get("deployment", ""))
+            m["job"] = r.get("job", m.get("job", "none"))
+            m["outcome"] = r.get("outcome", "ok")
+            m.setdefault("tokens_out", r.get("tokens_out", 0))
+        # client-observed total wins (it includes the network path);
+        # engine total stands in when no client record exists
+        if role == "client" or "total_ms" not in m:
+            m["total_ms"] = r.get("total_ms", 0.0)
+        for k in ("ttft_ms", "tpot_ms"):
+            if r.get(k) is not None and (role == "client"
+                                         or m.get(k) is None):
+                m[k] = r[k]
+        if r.get("replayed_tokens"):
+            m["replayed_tokens"] = r["replayed_tokens"]
+        m.setdefault("outcome", r.get("outcome", "ok"))
+    return [by_id[rid] for rid in order]
+
+
+def slowest(records: List[Dict[str, Any]], n: int = 10
+            ) -> List[Dict[str, Any]]:
+    return sorted(records, key=lambda r: r.get("total_ms", 0.0),
+                  reverse=True)[:n]
+
+
+def to_chrome(records: List[Dict[str, Any]]) -> List[dict]:
+    """Chrome-trace view: one complete event per record on the owning
+    process's "serve-request" row (the span plane contributes the
+    cross-process flow arrows; these rows give each request a bar with
+    its phase split in args)."""
+    events = []
+    for r in records:
+        start = r.get("ts", 0.0)
+        dur = max(1.0, r.get("total_ms", 0.0) * 1e3)  # ms -> us
+        args = {k: r[k] for k in
+                ("req_id", "outcome", "tokens_out", "ttft_ms",
+                 "tpot_ms") if r.get(k) is not None}
+        for ph in PHASES:
+            if r.get(ph):
+                args[ph] = r[ph]
+        events.append({
+            "name": f"req {r.get('req_id', '?')[:8]}",
+            "cat": "serve_request", "ph": "X",
+            "ts": start * 1e6, "dur": dur,
+            "pid": r.get("pid", 0),
+            "tid": f"serve-request:{r.get('role', '?')}",
+            "args": args,
+        })
+    return events
+
+
+# -- summaries / rendering (CLI + dashboard) -----------------------------
+
+def _pct(sorted_vals: List[float], q: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    return sorted_vals[min(len(sorted_vals) - 1,
+                           int(q * (len(sorted_vals) - 1)))]
+
+
+def summary(records: Optional[List[Dict[str, Any]]] = None
+            ) -> Dict[str, Any]:
+    recs = ([r.as_dict() for r in _RING.recent()]
+            if records is None else records)
+    out: Dict[str, Any] = {
+        "recorded": _RING.total_recorded, "in_ring": len(_RING),
+        "ring_capacity": _RING.capacity, "n": len(recs),
+    }
+    if not recs:
+        return out
+    totals = sorted(r.get("total_ms", 0.0) for r in recs)
+    out["total_ms_p50"] = round(_pct(totals, 0.5), 3)
+    out["total_ms_p99"] = round(_pct(totals, 0.99), 3)
+    for key in ("ttft_ms", "tpot_ms"):
+        vals = sorted(r[key] for r in recs if r.get(key) is not None)
+        if vals:
+            out[f"{key}_p50"] = round(_pct(vals, 0.5), 3)
+            out[f"{key}_p99"] = round(_pct(vals, 0.99), 3)
+    # where request time goes, summed over records that carry phases
+    phased = [r for r in recs if any(r.get(ph) for ph in PHASES)]
+    if phased:
+        tot = sum(r.get("total_ms", 0.0) for r in phased)
+        if tot > 0:
+            out["attribution"] = {
+                ph[:-3]: round(sum(r.get(ph, 0.0) for r in phased)
+                               / tot, 4)
+                for ph in PHASES}
+    outcomes: Dict[str, int] = {}
+    for r in recs:
+        o = r.get("outcome", "ok")
+        outcomes[o] = outcomes.get(o, 0) + 1
+    out["outcomes"] = outcomes
+    return out
+
+
+def format_table(records: List[Dict[str, Any]], last: int = 20) -> str:
+    recs = records[-last:]
+    if not recs:
+        return ("no request records (serve traffic with the request "
+                "recorder enabled?)")
+    header = (f"{'req_id':>16} {'deploy':>10} {'job':>8} "
+              f"{'total':>8} {'queue':>7} {'admit':>7} {'prefill':>8} "
+              f"{'decode':>8} {'ttft':>7} {'tpot':>6} {'tok':>5} "
+              f"{'outcome':>11}")
+    rows = [header, "-" * len(header)]
+    for r in recs:
+        ttft = r.get("ttft_ms")
+        tpot = r.get("tpot_ms")
+        rows.append(
+            f"{r.get('req_id', '?')[:16]:>16} "
+            f"{str(r.get('deployment', ''))[:10]:>10} "
+            f"{str(r.get('job', ''))[:8]:>8} "
+            f"{r.get('total_ms', 0.0):>8.2f} "
+            f"{r.get('queue_ms', 0.0):>7.2f} "
+            f"{r.get('admission_ms', 0.0):>7.2f} "
+            f"{r.get('prefill_ms', 0.0):>8.2f} "
+            f"{r.get('decode_ms', 0.0):>8.2f} "
+            f"{'-' if ttft is None else f'{ttft:.1f}':>7} "
+            f"{'-' if tpot is None else f'{tpot:.2f}':>6} "
+            f"{r.get('tokens_out', 0):>5} "
+            f"{r.get('outcome', 'ok'):>11}")
+    s = summary(records)
+    if "attribution" in s:
+        rows.append("")
+        rows.append("phase attribution: " + "  ".join(
+            f"{k}={100 * v:.1f}%"
+            for k, v in s["attribution"].items()))
+    return "\n".join(rows)
+
+
+# register the scrape-time callback once per process (idempotent: the
+# registry keys callbacks by name)
+from ray_tpu_torch.util import metrics as _metrics  # noqa: E402
+
+_metrics.DEFAULT_REGISTRY.register_callback(
+    "request_recorder", metrics_text)

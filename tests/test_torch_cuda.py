@@ -1,7 +1,8 @@
 """ray_tpu_torch on the card: the CUDA flash-attention kernels (forward
 and backward) against their plain versions, the engine on CUDA against
-the engine on the CPU, and a tiny training step on CUDA against the same
-step on the CPU.
+the engine on the CPU, a tiny training step on CUDA against the same
+step on the CPU, and the engine's CUDA graphs (`compiled_step`) against
+its eager step functions.
 
 Every test here needs an NVIDIA GPU and `nvcc` and skips without them.
 On a machine with a card (and no JAX), run them with
@@ -246,18 +247,20 @@ def test_engine_on_cuda_matches_cpu(cuda, family):
     params = {k: p * 8 if k.endswith(".weight") else p
               for k, p in params.items()}
     outs = []
-    before = flash_attention.launches
     for dev in ("cpu", cuda):
         eng = LLMEngine(family, cfg,
                         {k: p.to(dev) for k, p in params.items()},
                         EngineConfig(batch_buckets=(1, 2, 4),
                                      prefill_buckets=(8, 16)), device=dev)
+        eng.warmup()  # on the card: captures every bucket's graph
+        before = flash_attention.launches
         reqs = [eng.submit(p, 6)
                 for p in ([5, 9, 3], [7], list(range(1, 12)))]
         eng.run_until_idle()
         outs.append([r.result() for r in reqs])
         assert eng.shutdown() == 0
     assert outs[0] == outs[1]
+    # each prefill replay is credited the launches its capture counted
     assert flash_attention.launches == before + 3 * cfg.n_layer
 
 
@@ -287,10 +290,11 @@ def test_spec_engine_on_cuda_matches_cpu(cuda, family):
     rolled = {k: torch.roll(p, 1, 0) if k == "wte" else p
               for k, p in on_card.items()}
     for draft in (None, rolled):
-        before = flash_attention.launches
         eng = LLMEngine(family, cfg, on_card,
                         EngineConfig(spec_k=3, **buckets), device=cuda,
                         draft_params=draft)
+        eng.warmup()
+        before = flash_attention.launches
         reqs = [eng.submit(p, 9) for p in prompts]
         eng.run_until_idle()
         assert [r.result() for r in reqs] == want
@@ -298,3 +302,163 @@ def test_spec_engine_on_cuda_matches_cpu(cuda, family):
         eng.quiesce()
         assert eng.shutdown() == 0
         assert flash_attention.launches == before + 6 * cfg.n_layer
+
+
+# -- compiled_step: one CUDA graph per bucket ---------------------------------
+
+
+def _graph_engine(cuda, family):
+    """A tiny bf16 engine on the card with speculation on (every kind of
+    bucket: prefill, decode, chunk, verify and the draft's), warmed up."""
+    from ray_tpu_torch.models import gpt, llama
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+    cls = gpt.GPTConfig if family == "gpt" else llama.LlamaConfig
+    eng = LLMEngine(family, cls.tiny(dtype=torch.bfloat16), device=cuda,
+                    engine_config=EngineConfig(
+                        spec_k=2, batch_buckets=(1, 2),
+                        prefill_buckets=(8, 16)))
+    eng.warmup()
+    return eng
+
+
+def _fill_arena(eng, gen):
+    for kv in (eng.kv, eng.kv_d):
+        kv.k_pages.copy_(torch.randn(kv.k_pages.shape, generator=gen,
+                                     device=kv.k_pages.device))
+        kv.v_pages.copy_(torch.randn(kv.v_pages.shape, generator=gen,
+                                     device=kv.v_pages.device))
+
+
+def _bucket_calls(eng, gen):
+    """(name, compiled fn, host args) for every bucket of `eng`, with
+    random tokens, positions and page tables."""
+    vocab = eng.model_cfg.vocab_size
+
+    def ints(*shape, high):
+        return torch.randint(0, high, shape, generator=gen,
+                             device=gen.device).cpu()
+
+    out = []
+    for draft in (False, True):
+        kv = eng.kv_d if draft else eng.kv
+        width = eng.max_pages_per_seq_d if draft else eng.max_pages_per_seq
+        pre = eng._d_prefill_fns if draft else eng._prefill_fns
+        dec = eng._d_decode_fns if draft else eng._decode_fns
+        for s, fn in pre.items():
+            out.append((fn.__name__, fn, (ints(1, s, high=vocab),
+                                          ints(1, high=s) + 1)))
+        for b, fn in dec.items():
+            out.append((fn.__name__, fn, (
+                ints(b, high=vocab), ints(b, high=eng.model_cfg.max_seq_len
+                                          // 2), kv.k_pages, kv.v_pages,
+                ints(b, width, high=kv.num_pages))))
+        chunk = eng._d_chunk_fn if draft else eng._chunk_fn
+        c = eng._chunk_size
+        out.append((chunk.__name__, chunk, (
+            ints(1, c, high=vocab), ints(1, high=eng.model_cfg.max_seq_len
+                                         - c), kv.k_pages, kv.v_pages,
+            ints(1, width, high=kv.num_pages))))
+    for b, fn in eng._verify_fns.items():
+        k1 = eng.config.spec_k + 1
+        out.append((fn.__name__, fn, (
+            ints(b, k1, high=vocab), ints(b, high=eng.model_cfg.max_seq_len
+                                          - k1), eng.kv.k_pages,
+            eng.kv.v_pages, ints(b, eng.max_pages_per_seq,
+                                 high=eng.kv.num_pages))))
+    return out
+
+
+# a replay runs the eager function's kernels on the same inputs; cuBLAS
+# may choose another algorithm inside a capture, so bf16 results may
+# round apart by a few ulps (bf16's ulp at |x| ~ 4 is 3e-2)
+GRAPH_ATOL = 6e-2
+
+
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+def test_graph_replay_matches_eager_step(cuda, family):
+    """Every captured bucket (prefill, decode, chunk, verify, and the
+    draft's) gives its eager step function's outputs on the same inputs
+    and arena, also after the arena's contents changed: the graph reads
+    the arena live."""
+    from ray_tpu_torch.parallel import cache_stats
+    eng = _graph_engine(cuda, family)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    calls = _bucket_calls(eng, gen)
+    assert len(calls) == len(eng._step_fns())
+    misses = cache_stats()["misses"]
+    with torch.inference_mode():
+        for fill in range(2):
+            _fill_arena(eng, gen)
+            for name, fn, args in calls:
+                got = [x.clone() for x in fn(*args)]
+                want = fn.__wrapped__(*(a.to(cuda) for a in args))
+                for g, w in zip(got, want):
+                    assert g.shape == w.shape and g.dtype == w.dtype, name
+                    err = float((g.float() - w.float()).abs().max())
+                    assert err <= GRAPH_ATOL, (name, fill, err)
+    assert cache_stats()["misses"] == misses  # every call a replay
+    assert eng.shutdown() == 0
+
+
+def test_graph_replay_credits_kernel_launches(cuda):
+    """A prefill replay counts the forward kernel once per layer, as an
+    eager prefill does; the capture itself counts nothing."""
+    eng = _graph_engine(cuda, "gpt")
+    before = flash_attention.launches
+    with torch.inference_mode():
+        eng._prefill([[1] * 16], [16])
+    assert flash_attention.launches == before + eng.model_cfg.n_layer
+    assert eng.shutdown() == 0
+
+
+def test_graph_new_shape_raises_retrace(cuda):
+    from ray_tpu_torch.parallel import RetraceError
+    eng = _graph_engine(cuda, "gpt")
+    fn = eng._decode_fns[2]
+    with torch.inference_mode(), pytest.raises(RetraceError):
+        fn(torch.zeros(3, dtype=torch.long), torch.zeros(3, dtype=torch.long),
+           eng.kv.k_pages, eng.kv.v_pages,
+           torch.zeros(3, eng.max_pages_per_seq, dtype=torch.long))
+    assert eng.shutdown() == 0
+
+
+def test_graph_other_arena_storage_raises(cuda):
+    """A live argument is captured by address: an arena tensor of the
+    same shape in another storage must raise, not replay stale memory."""
+    eng = _graph_engine(cuda, "llama")
+    fn = eng._decode_fns[1]
+    args = (torch.zeros(1, dtype=torch.long),
+            torch.zeros(1, dtype=torch.long))
+    table = torch.zeros(1, eng.max_pages_per_seq, dtype=torch.long)
+    with torch.inference_mode():
+        fn(*args, eng.kv.k_pages, eng.kv.v_pages, table)
+        other = eng.kv.k_pages.clone()
+        with pytest.raises(RuntimeError, match="another storage"):
+            fn(*args, other, eng.kv.v_pages, table)
+    assert eng.shutdown() == 0
+
+
+def test_graph_capture_of_a_host_sync_fails(cuda):
+    """A step function that syncs with the host cannot be captured: the
+    call raises, and nothing falls back to the eager function."""
+    from ray_tpu_torch.parallel import ExecutableCache, compiled_step
+    cache = ExecutableCache()
+
+    def syncing(x):
+        return x * float(x.sum().item())
+
+    fn = compiled_step(syncing, cache=cache)
+    with pytest.raises(RuntimeError):
+        fn(torch.ones(4, device=cuda))
+    torch.cuda.synchronize()
+    assert cache.size() == 0 and cache.stats.misses == 1
+
+
+def test_engine_shutdown_releases_graphs(cuda):
+    from ray_tpu_torch.parallel import global_cache
+    entries = global_cache().size()
+    eng = _graph_engine(cuda, "gpt")
+    assert global_cache().size() == entries + len(eng._step_fns())
+    assert eng.shutdown() == 0
+    assert global_cache().size() == entries
+

@@ -338,7 +338,7 @@ def test_continuous_batching_matches_one_at_a_time(fam):
         m = eng.metrics()
         assert m["requests_completed"] == 4
         assert m["tokens_generated"] == sum(NEW)
-        assert m["bucket_calls"]["prefill:8"] == 4
+        assert m["compiled_step_calls"]["prefill:8"] == 4
         eng.quiesce()
         assert eng.metrics()["kv_pages_live"] == 0
     finally:
@@ -456,7 +456,7 @@ def test_spec_tokens_match_plain_and_jax_engine(fam, draft):
         m = eng.metrics()
         assert _spec_metrics(m) == jax_m
         assert m["spec_k"] == SPEC_K and m["spec_rounds"] > 0
-        assert m["bucket_calls"]["verify:2"] > 0  # lanes side by side
+        assert m["compiled_step_calls"]["verify:2"] > 0  # lanes side by side
         if draft == "self":
             assert m["spec_accepted"] == m["spec_proposed"]
             assert eng.d_net is eng.net  # the target's own tensors
@@ -485,7 +485,7 @@ def test_spec_with_prefix_cache_matches_cold(fam):
         assert got == want
         m = eng.metrics()
         assert m["prefix_cache_hits"] == 2
-        assert m["bucket_calls"]["draft_prefill:16"] == 3
+        assert m["compiled_step_calls"]["draft_prefill:16"] == 3
         eng.quiesce()
         assert eng.kv_d.live_pages == 0
     finally:
@@ -509,7 +509,7 @@ def test_spec_with_chunked_prefill_matches_plain(fam):
     try:
         got, _ = _run(eng, prompts, [7, 7])
         assert got == want
-        assert eng.metrics()["bucket_calls"]["draft_chunk:8"] == 4
+        assert eng.metrics()["compiled_step_calls"]["draft_chunk:8"] == 4
         eng.quiesce()
     finally:
         assert eng.shutdown() == 0
