@@ -34,8 +34,24 @@ a non-zero exit) on any failed check:
    falling losses, both kernels launched n_layer times per step (the
    backward twice: dQ, dK/dV), and at B=4 the loss and every parameter
    gradient against a plain-attention (`full_attention`) model on the
-   same weights. Prints tokens/s, MFU, peak memory and a profiled step;
-   then the same for Llama-125M at B=16, T=1024 (`train_llama`: GQA 12:4
+   same weights. Prints tokens/s, MFU, peak memory and a profiled step.
+   Then the same model, weights and batch through
+   `ray_tpu_torch.train.TrainStepRunner`, the step (forward, fused-CE
+   backward, AdamW(capturable=True) over a carry of the parameters and
+   the optimizer state) captured as one CUDA graph (K=1: 10 timed
+   replays) and four steps as one graph (K=4: 3 timed replays of 4).
+   Checks: the losses follow the eager loop's (K=1) and K=1's (K=4)
+   within TRAJ_RTOL; the miss takes exactly K optimizer steps; one cache
+   miss, then only hits, no retrace; the kernels credited n_layer times
+   per step (forward) and twice that (backward), and a profiled replay
+   lists them (K=1 and K=4); one step record per run. In `train`, the K=1
+   carry is saved with `array_checkpoint` after step 5, five steps run,
+   the checkpoint is copied back into the live carry (every leaf equal
+   to the saved one, bit for bit) and the same five steps run again:
+   the losses repeat within TRAJ_RTOL. Prints step ms,
+   tokens/s, MFU, the miss's seconds (eager steps + capture), the graph
+   pool's memory, peak memory and a profiled replay's device-busy share.
+   Then the same for Llama-125M at B=16, T=1024 (`train_llama`: GQA 12:4
    through both kernels, RoPE, SwiGLU, vocab 32000) and for GPT-2 125M
    at B=4, T=4096 (`train_long`: the T > 2048 regime of the Pallas
    kernels; its full_attention comparison runs at B=1);
@@ -84,10 +100,12 @@ import gc
 import json
 import re
 import statistics
+import shutil
 import subprocess
 import sys
 import time
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -104,9 +122,10 @@ from ray_tpu_torch.ops.flash_attention import (BWD_KERNELS_PER_CALL,
                                                kernel_occupancy,
                                                kernel_routes)
 from ray_tpu_torch.ops.fused_ce import fused_cross_entropy
-from ray_tpu_torch.parallel import cache_stats, global_cache
+from ray_tpu_torch.parallel import cache_stats, global_cache, stack_batches
 from ray_tpu_torch.parallel.ring_attention import full_attention
 from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+from ray_tpu_torch.train import TrainStepRunner, array_checkpoint
 from ray_tpu_torch.util import metrics, request_recorder, step_profiler
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -140,6 +159,21 @@ LOGIT_ATOL = 0.1
 # worst case).
 GRAD_RTOL = 5e-2
 LOSS_RTOL = 1e-3
+# Training through TrainStepRunner (each step, or four, one CUDA graph)
+# against the eager loop from the same weights and batch, step by step
+# (relative): a replay runs the eager step's kernels on the same inputs,
+# but the fused CE's `index_add_` adds dw's -onehot rows with atomics in
+# a varying order, and capturable AdamW computes its bias corrections on
+# the card in f32 where the eager optimizer takes Python floats; the last
+# bits of an update differ, and bf16 compute carries that through the
+# steps. The same bound holds K=4 against K=1 and a checkpoint's replayed
+# steps against the first pass.
+TRAJ_RTOL = 2e-3
+# timed replays of each TrainStepRunner: K=1 (one step a replay) and K=4
+GRAPH_RUNS = {1: 10, 4: 3}
+# the checkpoint phase writes here (inside the checkout, gitignored) and
+# removes it
+CKPT_DIR = Path(__file__).resolve().parent / "smoke_ckpt"
 
 
 def card_line() -> str:
@@ -270,30 +304,59 @@ def _kernel_class(name):
                  if any(key in name for key in keys)), "other")
 
 
+# the trace's warm-up (collection on, records dropped) and the recorded
+# window's lead-in and tail last this long each around the profiled
+# calls: a trace that opened at the first launch has come back without
+# its first records (~100 kernels of a 4-step replay; after the
+# checkpoint round trip, a marker launched 50 ms into the window)
+PROFILE_PAD_S = 0.05
+# the marker kernel launched at each end of the profiled calls
+# (`torch.cuda._sleep`): both in the trace = no end of it was cut
+MARKER_KERNEL = "spin_kernel"
+
+
 def profile_steps(fn, steps: int):
     """Device time of `steps` calls of `fn` from a torch.profiler trace:
     per-step wall time, device busy time (the sum of kernel durations)
     and the busy share, the kernels that take the most time, and the
-    device time by kind of kernel (`KERNEL_CLASSES`)."""
+    device time by kind of kernel (`KERNEL_CLASSES`), and whether the
+    trace is complete at both ends (a marker kernel before the calls and
+    one after them are both in it)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        prof.step()  # the warm-up ends: the recorded window opens
+        time.sleep(PROFILE_PAD_S)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        prof.step()  # the window closes
+    by_name, markers = {}, 0
     for e in prof.events():
         # a user annotation (e.g. "Optimizer.step#AdamW.step") spans
         # kernels that are counted on their own
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.device_time_total)
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        if MARKER_KERNEL in e.name:
+            markers += 1
+            continue
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.device_time_total)
     busy_us = sum(us for _, us in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     by_class = {}
@@ -308,6 +371,7 @@ def profile_steps(fn, steps: int):
         if key:
             flash[key] = flash.get(key, 0.0) + us / 1e3 / steps
     return dict(
+        trace_complete=markers == 2, markers=markers,
         wall_ms=wall_us / 1e3 / steps,
         device_ms=busy_us / 1e3 / steps if busy_us else None,
         busy_share=busy_us / wall_us if busy_us else None,
@@ -321,8 +385,19 @@ def profile_steps(fn, steps: int):
         flash_fwd_per_step=sum(n for name, (n, _) in by_name.items()
                                if any(k in name for k in FLASH_FWD_KERNELS))
         / steps,
+        # backward attention kernel executions per step (dQ and dK/dV)
+        flash_bwd_per_step=sum(n for name, (n, _) in by_name.items()
+                               if any(k in name for k in FLASH_BWD_KERNELS))
+        / steps,
         by_class=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         top=[(name[:70], us / 1e3 / steps) for name, (_, us) in top])
+
+
+def _whole(prof):
+    """Whether a `profile_steps` trace is complete at both ends."""
+    return ("trace complete at both ends" if prof["trace_complete"]
+            else f"trace CUT at an end ({prof['markers']} of 2 end "
+                 f"markers): its device numbers are short")
 
 
 # -- phases -----------------------------------------------------------------
@@ -578,12 +653,224 @@ def _loss(model, inputs, targets):
     return fused_cross_entropy(hidden, wte, targets)
 
 
+def _adamw_carry(model, opt):
+    """The graphed step's carry: the parameters (f32 masters) and
+    AdamW's state, created here as AdamW would create it at its first
+    step (capturable: `step` a tensor on the parameter's device), so the
+    first call's signature is that of every later call."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        opt.state[p] = {
+            "step": torch.zeros((), dtype=torch.float32, device=p.device),
+            "exp_avg": torch.zeros_like(p),
+            "exp_avg_sq": torch.zeros_like(p)}
+    return {"params": params,
+            **{key: {n: opt.state[p][key] for n, p in params.items()}
+               for key in ("exp_avg", "exp_avg_sq", "step")}}
+
+
+def _traj_err(got, want):
+    """Worst relative difference of two loss trajectories over their
+    common steps."""
+    n = min(len(got), len(want))
+    return max(abs(g - w) / abs(w) for g, w in zip(got[:n], want[:n]))
+
+
+def _graphed_train(name, family, cfg, seed, batch, seq, k, flash, device,
+                   checkpoint=False):
+    """Trains `cfg` from the eager loop's initial weights and batch
+    through `TrainStepRunner(step, steps_per_call=k)`: the step (forward,
+    fused CE backward, AdamW(capturable=True)) is captured as one CUDA
+    graph of k steps. The first run is the miss (the steps run eagerly,
+    then the capture), then `GRAPH_RUNS[k]` timed replays with the launch
+    counts set to 0 just before and read just after. With `checkpoint`, the
+    carry is saved with `array_checkpoint` after step 5, five steps run,
+    the checkpoint is copied back into the live carry (checked equal to
+    the saved carry, leaf by leaf) and the same five steps run again (all
+    before the timed replays). Ends with a profiled replay, which must
+    list every attention kernel, and evicts the graph."""
+    mod = TRAIN_FAMILIES[family][0]
+    runs = GRAPH_RUNS[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, inputs, targets = _train_setup(family, cfg, seed, batch, seq,
+                                          flash, device)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                            betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4,
+                            capturable=torch.device(device).type == "cuda")
+    carry = _adamw_carry(model, opt)
+
+    def train_step(carry, data):
+        loss = _loss(model, data["x"], data["y"])
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return carry, loss.detach()
+
+    data = {"x": inputs, "y": targets}
+    if k > 1:
+        data = stack_batches([data] * k)
+    tokens = batch * seq
+    runner = TrainStepRunner(
+        train_step, steps_per_call=k, tokens_per_step=tokens,
+        flops_per_step=mod.flops_per_token(cfg, seq) * tokens,
+        peak_flops=PEAK_BF16_FLOPS, device=device)
+    losses, calls = [], 0
+
+    def run():
+        nonlocal carry, calls
+        carry, loss = runner.run(carry, data)
+        calls += 1
+        # the static output: the next replay overwrites it
+        losses.append(loss.detach().clone().reshape(-1))
+
+    stats0, records0 = cache_stats(), step_profiler.ring().total_recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    run()  # the miss: k eager steps, then the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    # a miss takes exactly one call's steps (k), never a second
+    steps_after_miss = {float(s) for s in carry["step"].values()}
+    assert steps_after_miss == {float(k)}, steps_after_miss
+    stats1 = cache_stats()
+    assert stats1["misses"] == stats0["misses"] + 1, (stats0, stats1)
+    assert stats1["retraces"] == stats0["retraces"], (stats0, stats1)
+    # the eager run's blocks go back; the graph's private pool stays
+    torch.cuda.empty_cache()
+    pool_gib = (torch.cuda.memory_reserved() - reserved0) / 2**30
+
+    ckpt = None
+    if checkpoint:  # at k=1
+        for _ in range(4):
+            run()
+        path = CKPT_DIR
+        shutil.rmtree(path, ignore_errors=True)
+        saved = [x.detach().clone() for x in _tensor_leaves(carry)]
+        t1 = time.perf_counter()
+        array_checkpoint.save_sharded(str(path), carry)
+        save_s = time.perf_counter() - t1
+        assert array_checkpoint.is_usable(str(path))
+        for _ in range(5):
+            run()
+        first = torch.cat(losses[-5:]).tolist()
+        t1 = time.perf_counter()
+        restored = array_checkpoint.restore_sharded(str(path), carry)
+        with torch.no_grad():
+            for got, want in zip(_tensor_leaves(restored),
+                                 _tensor_leaves(carry)):
+                want.copy_(got)
+        restore_s = time.perf_counter() - t1
+        # the restore is exact: every parameter and AdamW moment and step
+        # count is bit for bit the saved one
+        exact = [torch.equal(x, y) for x, y in zip(_tensor_leaves(carry),
+                                                   saved)]
+        assert all(exact), f"{exact.count(False)} leaves differ"
+        del restored, saved
+        shutil.rmtree(path, ignore_errors=True)
+        for _ in range(5):
+            run()
+        again = torch.cat(losses[-5:]).tolist()
+        del losses[-5:]  # the trajectory keeps the first pass
+        err = _traj_err(again, first)
+        print(f"{name}: checkpoint after step 5 ({save_s:.2f} s to save, "
+              f"{restore_s:.2f} s to restore into the live carry, all "
+              f"{len(exact)} leaves bit-identical to the saved ones): steps "
+              f"6-10 {[round(x, 4) for x in first]} then again "
+              f"{[round(x, 4) for x in again]}, worst rel {err:.2e} (tol "
+              f"{TRAJ_RTOL})")
+        assert err <= TRAJ_RTOL, (first, again)
+        ckpt = dict(save_s=save_s, restore_s=restore_s,
+                    exact_leaves=len(exact), first=first,
+                    again=again, rel_err=err)
+
+    # the main path: counts at 0 just before, read just after
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    hits0 = cache_stats()["hits"]
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    fwd_launches = flash_attention.launches
+    bwd_launches = flash_attention_bwd.launches
+    steps = runs * k
+    stats2 = cache_stats()
+    assert stats2["hits"] == hits0 + runs, (hits0, stats2)
+    assert stats2["misses"] == stats1["misses"], (stats1, stats2)
+    assert stats2["retraces"] == stats0["retraces"], (stats0, stats2)
+    assert fwd_launches == cfg.n_layer * steps, fwd_launches
+    assert bwd_launches == cfg.n_layer * steps * BWD_KERNELS_PER_CALL, \
+        bwd_launches
+    # one step record per run; the timed runs' split of each run's time
+    records = step_profiler.ring().total_recorded - records0
+    assert records == calls, (records, calls)
+    split = {key: statistics.median(r[key] for r in runner.step_stats(runs))
+             for key in ("total_ms", "host_dispatch_ms",
+                         "device_execute_ms")}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.cat(losses).tolist()
+    assert all(np.isfinite(losses)), losses
+    step_ms = elapsed / steps * 1e3
+    tok_s = tokens * steps / elapsed
+    mfu = mod.flops_per_token(cfg, seq) * tok_s / PEAK_BF16_FLOPS
+    prof = profile_steps(lambda: runner.run(carry, data), 1)
+    # the replay's trace lists every attention kernel it ran
+    assert prof["flash_fwd_per_step"] == cfg.n_layer * k, prof
+    assert prof["flash_bwd_per_step"] == \
+        cfg.n_layer * k * BWD_KERNELS_PER_CALL, prof
+    assert global_cache().evict(runner._compiled) == 1
+    del runner, model, opt, carry, data, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    busy = "not measured" if prof["busy_share"] is None else (
+        f"{prof['device_ms']:.2f} ms device busy per step = "
+        f"{prof['busy_share']:.1%} of the profiled replay")
+    print(f"{name} K={k}: graphed, {steps} steps in {runs} replays in "
+          f"{elapsed:.3f} s = {step_ms:.2f} ms/step, {tok_s:.0f} tok/s, MFU "
+          f"{mfu:.1%} of 989 TFLOP/s bf16; miss ({k} eager step(s) + "
+          f"capture) {capture_s:.2f} s; graph pool {pool_gib:.2f} GiB "
+          f"(memory_reserved {reserved0 / 2**30:.2f} GiB before); peak "
+          f"memory {peak_gib:.2f} GiB; launches fwd {fwd_launches} bwd "
+          f"{bwd_launches}; profile: {busy}, {prof['kernels_per_step']:.0f} "
+          f"kernels/replay ({_whole(prof)}), flash fwd/bwd kernels per replay "
+          f"{prof['flash_fwd_per_step']:.0f}/{prof['flash_bwd_per_step']:.0f};"
+          f" step records of the timed runs, median: {split['total_ms']} ms "
+          f"a run = {split['host_dispatch_ms']} ms host dispatch (the call "
+          f"up to its return) + {split['device_execute_ms']} ms to the "
+          f"synchronize after it (card: {card_line()})")
+    return dict(k=k, runs=runs, steps=steps, losses=losses,
+                capture_s=capture_s, pool_gib=pool_gib,
+                reserved_before_gib=reserved0 / 2**30, step_ms=step_ms,
+                tokens_per_s=tok_s, mfu=mfu, peak_mem_gib=peak_gib,
+                fwd_launches=fwd_launches, bwd_launches=bwd_launches,
+                step_records=records, run_split_ms=split, profile=prof,
+                checkpoint=ckpt)
+
+
+def _tensor_leaves(tree):
+    """The tensor leaves of a dict/list/tuple tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in _tensor_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [x for item in tree for x in _tensor_leaves(item)]
+    return [tree]
+
+
 def phase_train(name="train", family="gpt", seed=3, batch=16, seq=1024,
-                steps=10, grad_batch=4, cfg=None, device="cuda"):
+                steps=10, grad_batch=4, cfg=None, device="cuda",
+                checkpoint=False):
     """Trains `cfg` (default GPT-2 125M, remat off, T=`seq`) as
     `bench.py` does: a warm step, then `steps` timed steps, the launch
     counts read just after them, a profiled step, and the kernel path's
-    loss and gradients at B=`grad_batch` against `full_attention`'s."""
+    loss and gradients at B=`grad_batch` against `full_attention`'s.
+    Then from the same weights and batch through `TrainStepRunner` at
+    K=1 and K=4 steps per graph (`GRAPH_RUNS` timed replays each; with
+    `checkpoint`, the K=1 run's array-checkpoint round trip)."""
     cfg = cfg or gpt_mod.GPTConfig.gpt2_125m(remat=False, max_seq_len=seq)
     mod = TRAIN_FAMILIES[family][0]
     print(f"{name}: {cfg}, B={batch}, T={seq}")
@@ -677,13 +964,32 @@ def phase_train(name="train", family="gpt", seed=3, batch=16, seq=1024,
           f"memory {peak_gib:.2f} GiB; launches fwd {fwd_launches} bwd "
           f"{bwd_launches}; q/k/v strides {views['strides']}")
     print(f"{name}: profile: {prof['wall_ms']:.2f} ms/step wall, {busy}, "
-          f"{prof['kernels_per_step']:.0f} kernels/step; device ms by kind "
+          f"{prof['kernels_per_step']:.0f} kernels/step ({_whole(prof)}); "
+          f"device ms by kind "
           f"{ {k: round(v, 2) for k, v in prof['by_class'].items()} }; top "
           f"{prof['top']}")
     print(f"{name}: B={grad_batch} kernel path vs full_attention: loss "
           f"{grad_losses['flash']:.5f} vs {grad_losses['full']:.5f} "
           f"(rel {loss_rel:.1e}); worst gradient {worst_name} "
           f"{worst:.2e} of its max (tol {GRAD_RTOL})")
+
+    # the same model and batch through TrainStepRunner: each step one
+    # graph (K=1), then four steps one graph (K=4)
+    graphed = {}
+    for k in GRAPH_RUNS:
+        graphed[f"k{k}"] = g = _graphed_train(
+            name, family, cfg, seed, batch, seq, k, flash, device,
+            checkpoint=checkpoint and k == 1)
+        # K=1 against the eager loop, K=4 against K=1, step by step
+        want = graphed["k1"]["losses"] if k > 1 else losses
+        err = _traj_err(g["losses"], want)
+        print(f"{name} K={k}: losses {[round(x, 4) for x in g['losses']]}; "
+              f"worst rel difference from {'K=1' if k > 1 else 'eager'} "
+              f"over the first {min(len(g['losses']), len(want))} steps "
+              f"{err:.2e} (tol {TRAJ_RTOL})")
+        assert err <= TRAJ_RTOL, (k, g["losses"], want)
+        g["traj_rel_err"] = err
+
     return dict(phase=name, family=family, n_layer=cfg.n_layer,
                 batch=batch, seq=seq, steps=steps, remat=cfg.remat,
                 losses=losses, warm_s=warm_s, step_ms=step_ms,
@@ -692,7 +998,8 @@ def phase_train(name="train", family="gpt", seed=3, batch=16, seq=1024,
                 qkv_strides=views["strides"], profile=prof,
                 grad_check=dict(batch=grad_batch, losses=grad_losses,
                                 loss_rel=loss_rel, worst=worst,
-                                worst_param=worst_name, tol=GRAD_RTOL))
+                                worst_param=worst_name, tol=GRAD_RTOL),
+                graphed=graphed)
 
 
 def _top2_gap(logits):
@@ -1113,7 +1420,8 @@ def phase_engine(name, mod, cfg, net_cls, buckets, prompt_lens, max_new,
                 f"{p['device_ms']:.3f} ms device busy = {p['busy_share']:.1%}"
             print(f"engine[{name}]: {label}: profile {key}: "
                   f"{p['wall_ms']:.3f} ms/step wall, {busy}, "
-                  f"{p['kernels_per_step']:.0f} kernels/step, flash "
+                  f"{p['kernels_per_step']:.0f} kernels/step ({_whole(p)}), "
+                  f"flash "
                   f"{p['flash_ms']:.3f} ms; top {p['top'][:4]}")
     return row
 
@@ -1262,6 +1570,13 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
                     ("train_llama", TRAIN_LLAMA_SHAPE, train_llama),
                     ("train_long", TRAIN_LONG_SHAPE, train_long))}
 
+    def graphed_launches(key):
+        # the TrainStepRunner runs' launches (replays credited with their
+        # capture's), e.g. launches_train_graph_k4
+        return {f"launches_{path['phase']}_graph_{k}": g[key]
+                for path in (train, train_llama, train_long)
+                for k, g in path["graphed"].items()}
+
     # the GPT-2 run's launches per prefill bucket, at that bucket's time
     by_t = {r["t"]: r for r in rows if r["shape"].startswith("gpt2 prefill")}
     main_path = [dict(t=t, launches=gpt["n_layer"] * n, ms=by_t[t]["ms"],
@@ -1279,6 +1594,7 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_train": train["fwd_launches"],
         "launches_train_llama": train_llama["fwd_launches"],
         "launches_train_long": train_long["fwd_launches"],
+        **graphed_launches("fwd_launches"),
         "launches_engine_spec": sum(r["flash_launches"] for r in spec),
         "launches_engine_spec_draft_prefill": sum(
             r["draft_prefill_launches"] for r in spec),
@@ -1303,6 +1619,7 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches": train["bwd_launches"],
         "launches_train_llama": train_llama["bwd_launches"],
         "launches_train_long": train_long["bwd_launches"],
+        **graphed_launches("bwd_launches"),
         "kernels_per_call": BWD_KERNELS_PER_CALL,
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in bwd_rows),
@@ -1331,7 +1648,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase_kernels(gen)
     bwd_rows = phase_backward(gen)
-    train = phase_train()
+    train = phase_train(checkpoint=True)
     # bench.py's Llama run (`bench_llama_tokens_per_sec`): GQA 12:4
     train_llama = phase_train(
         "train_llama", "llama",

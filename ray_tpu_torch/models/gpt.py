@@ -42,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.parallel.compile_cache import graphing as _graphing
 from ray_tpu_torch.parallel.ring_attention import full_attention
 
 
@@ -229,6 +230,15 @@ class GPT(nn.Module):
         if drop and generator is None:
             raise ValueError("GPT: dropout needs a torch.Generator "
                              "(deterministic=False, dropout > 0)")
+        if drop and tokens.is_cuda and (
+                torch.cuda.is_current_stream_capturing() or _graphing()):
+            # a replay would reuse the capture's masks unless the
+            # generator's state were registered with the graph; raised
+            # before compiled_step's eager first run takes effect
+            raise NotImplementedError(
+                "GPT: dropout inside a captured CUDA graph (a compiled "
+                "train step) is not supported yet; train with dropout=0 "
+                "or deterministic=True, or call the step eagerly")
         remat = cfg.remat and torch.is_grad_enabled() and kv_sink is None
         x = self.wte.to(cfg.dtype)[tokens] + self.wpe.to(cfg.dtype)[None, :t]
         for blk in self.blocks():

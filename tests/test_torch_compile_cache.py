@@ -6,8 +6,10 @@ of calls must give the JAX cache's hits, misses and retraces, raise
 `RetraceError` at the same call, expose the same `cache_stats()` keys
 and the same metric names. The cases of `tests/test_compile_cache.py`
 (hit/miss counters, the retrace guard, dtype and Python-scalar keys, the
-global stats) are mirrored here, without `fold_steps` (the train plane's,
-not ported yet), plus eviction, which the port adds.
+global stats) are mirrored here, plus eviction, which the port adds, and
+the JAX signature (`donate_argnums`, `static_argnums` held to `jax.jit`,
+`mesh`). `fold_steps` and `stack_batches` are held to the JAX ones in
+tests/test_torch_train_runner.py.
 """
 
 import numpy as np
@@ -219,3 +221,160 @@ def test_dispatch_sampling_matches_jax():
     for b, a in zip(before, after):
         assert a["calls"] - b["calls"] == n
         assert a["sampled"] - b["sampled"] == 2
+
+
+# -- the JAX signature ----------------------------------------------------------
+
+
+def _sgd(w, batch):
+    """A functional step in both frameworks: (w - 0.1 * grad, loss)."""
+    x, y = batch
+    if isinstance(w, torch.Tensor):
+        w = w.detach().requires_grad_()
+        with torch.enable_grad():
+            loss = ((x @ w - y) ** 2).mean()
+            (g,) = torch.autograd.grad(loss, w)
+        return (w - 0.1 * g).detach(), loss.detach()
+    import jax
+    loss, g = jax.value_and_grad(
+        lambda v: jnp.mean((x @ v - y) ** 2))(w)
+    return w - 0.1 * g, loss
+
+
+def _data(seed, side):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(16, 4).astype(np.float32)
+    y = x @ rng.randn(4).astype(np.float32)
+    if side == 0:
+        return jnp.asarray(x), jnp.asarray(y)
+    return torch.from_numpy(x), torch.from_numpy(y)
+
+
+def test_donate_argnums_is_accepted_and_counts_as_jax():
+    """`donate_argnums=(0,)`, as the JAX runner passes it: the same
+    values and counters as the JAX cache over four carried steps. On the
+    CPU donation has no effect: the first carry stays readable."""
+    caches = (jcc.ExecutableCache(), tcc.ExecutableCache())
+    steps = [cc.compiled_step(_sgd, donate_argnums=(0,), cache=c)
+             for cc, c in zip((jcc, tcc), caches)]
+    w = [jnp.zeros(4), torch.zeros(4)]
+    w0 = w[1]
+    for _ in range(4):
+        out = [step(w[side], _data(0, side))
+               for side, step in enumerate(steps)]
+        w = [o[0] for o in out]
+        np.testing.assert_allclose(np.asarray(out[0][1]),
+                                   out[1][1].numpy(), rtol=1e-5)
+        assert caches[0].stats.as_dict() == caches[1].stats.as_dict()
+    np.testing.assert_allclose(np.asarray(w[0]), w[1].numpy(), rtol=1e-5)
+    assert w0.tolist() == [0.0] * 4
+
+
+def test_static_argnums_key_by_value_as_jax_jit():
+    """A static argument is keyed by its value as a whole (hash and
+    equality) and reaches the function as it is: values as
+    `jax.jit(static_argnums=...)`; an equal value is a hit, a new one a
+    miss and a retrace; a non-hashable one raises ValueError, as in
+    `jax.jit`. (The JAX `compiled_step` passes static arguments to its
+    compiled executable and raises TypeError on every call.)"""
+    import jax
+
+    def scale(x, factors):
+        return x * factors[0] + factors[1]
+
+    want = jax.jit(scale, static_argnums=(1,))
+    cache = tcc.ExecutableCache()
+    f = tcc.compiled_step(scale, static_argnums=(1,), cache=cache)
+    x = np.arange(4, dtype=np.float32)
+    for factors in ((2.0, 1.0), (2.0, 1.0), (3.0, 0.0)):
+        np.testing.assert_allclose(
+            f(torch.from_numpy(x), factors).numpy(),
+            np.asarray(want(jnp.asarray(x), factors)), rtol=1e-6)
+    assert cache.stats.as_dict() == {"hits": 1, "misses": 2,
+                                     "retraces": 1}
+    assert cache.size() == 2
+    with pytest.raises(ValueError, match="non-hashable static"):
+        f(torch.from_numpy(x), [2.0, 1.0])
+    with pytest.raises(ValueError, match="Non-hashable static"):
+        want(jnp.asarray(x), [2.0, 1.0])
+
+
+def test_static_argnums_keyword_form_and_positions():
+    """Static arguments may sit between dynamic ones; the dynamic ones
+    keep their positions for `live_argnums`/`donate_argnums`."""
+    def f(a, n, b):
+        return a * n + b
+
+    cache = tcc.ExecutableCache()
+    step = tcc.compiled_step(static_argnums=(1,), donate_argnums=(2,),
+                             cache=cache)(f)
+    out = step(torch.ones(3), 4, torch.ones(3))
+    assert out.tolist() == [5.0, 5.0, 5.0]
+    step(torch.ones(3), 4, torch.ones(3))
+    assert cache.stats.as_dict() == {"hits": 1, "misses": 1,
+                                     "retraces": 0}
+
+
+def test_mesh_is_not_supported_yet():
+    with pytest.raises(NotImplementedError, match="S5"):
+        tcc.compiled_step(_scaled, mesh=object())
+    with pytest.raises(NotImplementedError, match="S5"):
+        tcc.fold_steps(_sgd, 2, mesh=object())
+    tcc.compiled_step(_scaled, mesh=None)  # None is the default
+
+
+def test_autograd_mode_is_part_of_the_key():
+    """A call under inference mode and one with grad enabled never share
+    an entry (a graph is captured under its caller's mode); a mode change
+    alone is a miss, not a retrace."""
+    cache = tcc.ExecutableCache()
+    f = tcc.compiled_step(_scaled, cache=cache, on_retrace="error")
+    f(torch.ones(2))
+    with torch.inference_mode():
+        f(torch.ones(2))
+        f(torch.ones(2))
+    with torch.no_grad():
+        f(torch.ones(2))
+    assert cache.stats.as_dict() == {"hits": 1, "misses": 3,
+                                     "retraces": 0}
+    assert cache.size() == 3
+
+
+def test_a_miss_runs_the_function_once():
+    """The first call with a signature runs the function exactly once,
+    as the JAX cache's does (an in-place counter advances by one per
+    call, also on the miss)."""
+    def bump(counter):
+        counter.add_(1)
+        return counter
+
+    cache = tcc.ExecutableCache()
+    f = tcc.compiled_step(bump, donate_argnums=(0,), cache=cache)
+    c = torch.zeros(())
+    for i in range(1, 4):
+        c = f(c)
+        assert float(c) == i
+
+
+def test_graphing_is_false_on_the_cpu_entry():
+    """`graphing()` (read by GPT's dropout check) is true only while a
+    step is run for a capture on the card: the CPU entry is the eager
+    function, so a dropout forward runs there, and the same generator
+    seed gives the same masks as a direct call."""
+    from ray_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig.tiny(dtype=torch.float32, dropout=0.1)
+    net = gpt.GPT.from_params(cfg, gpt.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu", dtype=torch.float32))
+    seen = []
+
+    def fwd(toks, seed):
+        seen.append(tcc.graphing())
+        gen = torch.Generator().manual_seed(seed)
+        return net(toks, deterministic=False, generator=gen)
+
+    toks = torch.zeros(1, 8, dtype=torch.long)
+    f = tcc.compiled_step(fwd, cache=tcc.ExecutableCache())
+    got = f(toks, 7)
+    assert seen == [False] and not tcc.graphing()
+    torch.testing.assert_close(got, fwd(toks, 7), rtol=0, atol=0)

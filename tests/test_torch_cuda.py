@@ -1,8 +1,10 @@
 """ray_tpu_torch on the card: the CUDA flash-attention kernels (forward
 and backward) against their plain versions, the engine on CUDA against
 the engine on the CPU, a tiny training step on CUDA against the same
-step on the CPU, and the engine's CUDA graphs (`compiled_step`) against
-its eager step functions.
+step on the CPU, the engine's CUDA graphs (`compiled_step`) against its
+eager step functions, and the train plane's graphs (a miss runs the
+step once, autograd inside a graph, donation, `fold_steps`,
+`TrainStepRunner`'s static aux, checkpoints restored into a live carry).
 
 Every test here needs an NVIDIA GPU and `nvcc` and skips without them.
 On a machine with a card (and no JAX), run them with
@@ -10,6 +12,7 @@ On a machine with a card (and no JAX), run them with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -462,3 +465,338 @@ def test_engine_shutdown_releases_graphs(cuda):
     assert eng.shutdown() == 0
     assert global_cache().size() == entries
 
+
+
+# -- the train plane: autograd and donation inside graphs ----------------------
+
+
+def test_graph_miss_runs_the_function_once(cuda):
+    """A miss is the call: an in-place counter advances by exactly one on
+    the miss (the eager run; the capture launches nothing) and by one on
+    each replay."""
+    from ray_tpu_torch.parallel import ExecutableCache, compiled_step
+
+    def bump(counter):
+        counter.add_(1)
+        return counter
+
+    cache = ExecutableCache()
+    f = compiled_step(bump, donate_argnums=(0,), cache=cache)
+    c = torch.zeros((), device=cuda)
+    for i in range(1, 5):
+        c = f(c)
+        assert float(c) == i
+    assert cache.stats.as_dict() == {"hits": 3, "misses": 1,
+                                     "retraces": 0}
+
+
+def _tiny_gpt_runner(cuda, cfg, seed, **forward_kw):
+    """A tiny GPT on the card with AdamW(capturable) and its carry, and
+    the train step of chip_smoke (forward, fused CE, backward, step);
+    `forward_kw` goes to the model's forward."""
+    from functools import partial
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops.fused_ce import fused_cross_entropy
+
+    params = gpt.init_params(cfg, torch.Generator().manual_seed(seed),
+                             cuda, dtype=torch.float32)
+    net = gpt.GPT.from_params(cfg, params,
+                              attention_fn=partial(flash_attention,
+                                                   causal=True),
+                              trainable=True)
+    opt = torch.optim.AdamW(net.parameters(), lr=3e-4, weight_decay=1e-4,
+                            capturable=True)
+    named = dict(net.named_parameters())
+    for p in named.values():
+        opt.state[p] = {"step": torch.zeros((), device=cuda),
+                        "exp_avg": torch.zeros_like(p),
+                        "exp_avg_sq": torch.zeros_like(p)}
+    carry = {"params": named,
+             "step": {n: opt.state[p]["step"] for n, p in named.items()}}
+
+    def step(carry, toks):
+        hidden, wte = net(toks[:, :-1], return_hidden=True, **forward_kw)
+        loss = fused_cross_entropy(hidden, wte, toks[:, 1:])
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return carry, loss.detach()
+
+    return net, carry, step
+
+
+def _captured_train_step_matches_eager(cuda, remat):
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import global_cache
+    from ray_tpu_torch.train import TrainStepRunner
+
+    cfg = gpt.GPTConfig.tiny(dtype=torch.float32, remat=remat)
+    # with remat each block's forward runs again in the backward
+    fwd_per_step = cfg.n_layer * (2 if remat else 1)
+    toks = [torch.randint(0, cfg.vocab_size, (2, 33),
+                          generator=torch.Generator().manual_seed(i)
+                          ).to(cuda) for i in range(3)]
+    eager_net, eager_carry, eager_step = _tiny_gpt_runner(cuda, cfg, 0)
+    want = [float(eager_step(eager_carry, t)[1]) for t in toks]
+    net, carry, step = _tiny_gpt_runner(cuda, cfg, 0)
+    runner = TrainStepRunner(step, device=cuda)
+    before = runner.cache_stats()  # the process-wide cache's counters
+    got = []
+    for i, t in enumerate(toks):
+        fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+        carry, loss = runner.run(carry, t)
+        got.append(float(loss))
+        assert flash_attention.launches == fwd + fwd_per_step
+        assert flash_attention_bwd.launches == \
+            bwd + BWD_KERNELS_PER_CALL * cfg.n_layer
+        assert all(float(s) == i + 1 for s in carry["step"].values())
+    after = runner.cache_stats()
+    assert {n: after[n] - before[n] for n in after} == {
+        "hits": 2, "misses": 1, "retraces": 0}
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for (n, p), q in zip(net.named_parameters(), eager_net.parameters()):
+        assert float((p - q).abs().max()) <= 1e-5, n
+    assert global_cache().evict(step) == 1
+
+
+def test_graph_captures_a_train_step(cuda):
+    """Forward, backward and AdamW(capturable=True) in one graph
+    (`TrainStepRunner`, K=1) match the same step called eagerly, over 3
+    steps from the same weights: losses (rtol 1e-5) and parameters (atol
+    1e-5; f32, the same kernels, but `index_add_` adds dw's -onehot rows
+    with atomics in a varying order and Adam amplifies a near-zero
+    gradient's differences, as in test_adamw_steps_match_optax). Each
+    replay launches both kernels n_layer times (backward: twice)."""
+    _captured_train_step_matches_eager(cuda, remat=False)
+
+
+def test_graph_captures_a_remat_train_step(cuda):
+    """The same at the configurations' default, remat on: each block is
+    recomputed in the captured backward (`torch.utils.checkpoint`, which
+    stashes and restores the RNG state inside the capture), so each
+    replay launches the forward kernel twice per layer."""
+    _captured_train_step_matches_eager(cuda, remat=True)
+
+
+def test_graph_capture_failure_after_the_call_took_effect(cuda):
+    """A step that syncs with the host (it logs `loss.item()`) runs
+    eagerly on the miss and then fails its capture. The error says that
+    the call took effect and carries its result; the carry advanced by
+    exactly that one AdamW step (the eager step's parameters; the capture
+    launched nothing). A retry is one more eager step, and raises
+    again."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import ExecutableCache, compiled_step
+
+    cfg = gpt.GPTConfig.tiny(dtype=torch.float32, remat=False)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33),
+                         generator=torch.Generator().manual_seed(0)
+                         ).to(cuda)
+    eager_net, eager_carry, eager_step = _tiny_gpt_runner(cuda, cfg, 0)
+    want = float(eager_step(eager_carry, toks)[1])
+    net, carry, step = _tiny_gpt_runner(cuda, cfg, 0)
+    logged = []
+
+    def logging_step(carry, toks):
+        carry, loss = step(carry, toks)
+        logged.append(loss.item())  # a host sync: not capturable
+        return carry, loss
+
+    cache = ExecutableCache()
+    f = compiled_step(logging_step, donate_argnums=(0,), cache=cache)
+    with pytest.raises(RuntimeError) as info:
+        f(carry, toks)
+    torch.cuda.synchronize()
+    assert any("took effect" in note
+               for note in getattr(info.value, "__notes__", ())), info.value
+    out_carry, loss = info.value.result
+    assert out_carry["params"]["wte"] is carry["params"]["wte"]
+    np.testing.assert_allclose([float(loss), logged[0]], [want, want],
+                               rtol=1e-5)
+    assert len(logged) == 1
+    assert all(float(s) == 1 for s in carry["step"].values())
+    for (n, p), q in zip(net.named_parameters(), eager_net.parameters()):
+        assert float((p - q).abs().max()) <= 1e-5, n
+    assert cache.size() == 0 and cache.stats.misses == 1
+    with pytest.raises(RuntimeError):
+        f(carry, toks)
+    torch.cuda.synchronize()
+    assert all(float(s) == 2 for s in carry["step"].values())
+
+
+def _sgd(w, batch):
+    """A functional step: returns a NEW carry tensor."""
+    x, y = batch
+    w = w.detach().requires_grad_()
+    with torch.enable_grad():
+        loss = torch.mean((x @ w - y) ** 2)
+        (g,) = torch.autograd.grad(loss, w)
+    return (w - 0.1 * g).detach(), loss.detach()
+
+
+def _sgd_batches(cuda, n, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        x = torch.randn(16, 4, generator=gen)
+        out.append((x.to(cuda), (x @ torch.arange(4.0)).to(cuda)))
+    return out
+
+
+def test_graph_donated_carry_round_trips(cuda):
+    """A donated functional carry is copied back into its storage inside
+    the graph: every call returns the donated storage, the next call
+    accepts it, another storage raises, and the values are the eager
+    step's."""
+    from ray_tpu_torch.parallel import ExecutableCache, compiled_step
+
+    batches = _sgd_batches(cuda, 4)
+    w_ref, want = torch.zeros(4, device=cuda), []
+    for b in batches:
+        w_ref, loss = _sgd(w_ref, b)
+        want.append(float(loss))
+    f = compiled_step(_sgd, donate_argnums=(0,), cache=ExecutableCache())
+    w = torch.zeros(4, device=cuda)
+    ptr, got = w.data_ptr(), []
+    for b in batches:
+        w, loss = f(w, b)
+        assert w.data_ptr() == ptr
+        got.append(float(loss))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert torch.allclose(w, w_ref, rtol=1e-6, atol=0)
+    with pytest.raises(RuntimeError, match="another storage"):
+        f(torch.zeros(4, device=cuda), batches[0])
+
+
+def test_fold_steps_k4_equals_four_single_calls(cuda):
+    """Four steps as one graph walk the trajectory of four one-step
+    graphs (the same kernels; rtol 1e-6)."""
+    from ray_tpu_torch.parallel import (ExecutableCache, compiled_step,
+                                        fold_steps, stack_batches)
+
+    batches = _sgd_batches(cuda, 4, seed=1)
+    single = compiled_step(_sgd, donate_argnums=(0,),
+                           cache=ExecutableCache())
+    w, want = torch.zeros(4, device=cuda), []
+    for _ in range(2):
+        for b in batches:
+            w, loss = single(w, b)
+            want.append(float(loss))
+    multi = fold_steps(_sgd, 4, cache=ExecutableCache())
+    stacked = stack_batches(batches)
+    v, got = torch.zeros(4, device=cuda), []
+    for _ in range(2):  # the miss, then a replay
+        v, losses = multi(v, stacked)
+        assert losses.shape == (4,)
+        got.extend(losses.tolist())
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert torch.allclose(v, w, rtol=1e-6, atol=0)
+    assert multi.stats.as_dict() == {"hits": 1, "misses": 1,
+                                     "retraces": 0}
+
+
+def test_runner_aux_is_overwritten_unless_cloned(cuda):
+    """The runner returns the graph's static aux: the next replay
+    overwrites it, so a caller that keeps it across runs clones it."""
+    from ray_tpu_torch.parallel import global_cache
+    from ray_tpu_torch.train import TrainStepRunner
+
+    def step(carry, batch):
+        carry["w"].add_(batch)
+        return carry, carry["w"].sum() * 1.0
+
+    runner = TrainStepRunner(step, device=cuda)
+    carry = {"w": torch.zeros(3, device=cuda)}
+    carry, first = runner.run(carry, torch.ones(3, device=cuda))  # miss
+    carry, second = runner.run(carry, torch.ones(3, device=cuda))
+    kept = second.clone()
+    carry, third = runner.run(carry, torch.ones(3, device=cuda))
+    assert float(first) == 3.0 and float(kept) == 6.0
+    assert third is second and float(second) == 9.0
+    assert global_cache().evict(step) == 1
+
+
+def test_checkpoint_restored_into_the_live_carry_keeps_replays_valid(
+        cuda, tmp_path):
+    """Save the carry, run two steps, copy the restored checkpoint into
+    the live carry and run the same two steps again: the same losses
+    (the same graph on the same state). Handing the restored tensors in
+    as the carry instead raises: they are other storages."""
+    from ray_tpu_torch.parallel import global_cache
+    from ray_tpu_torch.train import TrainStepRunner, array_checkpoint
+
+    batches = _sgd_batches(cuda, 4, seed=2)
+    runner = TrainStepRunner(_sgd, device=cuda)
+    w = torch.zeros(4, device=cuda)
+    for b in batches[:2]:
+        w, _ = runner.run(w, b)
+    array_checkpoint.save_sharded(str(tmp_path / "ck"), {"w": w})
+    first = []
+    for b in batches[2:]:
+        w, loss = runner.run(w, b)
+        first.append(float(loss))
+    restored = array_checkpoint.restore_sharded(str(tmp_path / "ck"),
+                                                {"w": w})
+    assert restored["w"].device == w.device
+    with pytest.raises(RuntimeError, match="another storage"):
+        runner.run(restored["w"], batches[2])
+    w.copy_(restored["w"])
+    again = []
+    for b in batches[2:]:
+        w, loss = runner.run(w, b)
+        again.append(float(loss))
+    assert again == first
+    assert global_cache().evict(_sgd) == 1
+
+
+def test_graph_capture_of_dropout_raises(cuda):
+    """Dropout inside a captured step would replay the capture's masks:
+    the step raises before its eager first run takes effect, so the
+    carry is untouched (no AdamW step) and nothing is cached."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import ExecutableCache, compiled_step
+
+    cfg = gpt.GPTConfig.tiny(dtype=torch.float32, dropout=0.1, remat=False)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    net, carry, step = _tiny_gpt_runner(cuda, cfg, 0, deterministic=False,
+                                        generator=gen)
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
+    cache = ExecutableCache()
+    f = compiled_step(step, donate_argnums=(0,), cache=cache)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        f(carry, torch.zeros(1, 9, dtype=torch.long, device=cuda))
+    torch.cuda.synchronize()
+    assert all(float(s) == 0 for s in carry["step"].values())
+    for n, p in net.named_parameters():
+        assert torch.equal(p, before[n]), n
+    assert cache.size() == 0
+
+
+def test_graph_capture_of_a_host_sync_in_backward_fails(cuda):
+    """A host sync inside the backward (autograd's device thread) of a
+    captured step still fails the capture, although the capture is
+    thread_local: the sync is on the capturing stream."""
+    from ray_tpu_torch.parallel import ExecutableCache, compiled_step
+
+    class SyncInBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * float(g.sum().item())
+
+    w = torch.ones(4, device=cuda, requires_grad=True)
+
+    def step(w):
+        SyncInBackward.apply(w).sum().backward()
+        return w.grad
+
+    cache = ExecutableCache()
+    f = compiled_step(step, live_argnums=(0,), cache=cache)
+    with pytest.raises(RuntimeError):
+        f(w)
+    torch.cuda.synchronize()
+    assert cache.size() == 0 and cache.stats.misses == 1
