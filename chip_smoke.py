@@ -10,10 +10,11 @@ a non-zero exit) on any failed check:
 1. device: the card's name and power limit (nvidia-smi) and versions;
 2. build: every CUDA kernel source of the port, compiled from the
    checkout (`ray_tpu_torch/ops/csrc/*.cu` with the shared
-   `csrc/hopper.cuh`, one nvcc each, in parallel), with each kernel
-   instance's registers, stack and spill bytes parsed from ptxas' log
-   (`ops/build/<name>.log`) and its dynamic shared memory and blocks per
-   SM from the CUDA runtime;
+   `csrc/hopper.cuh`, one nvcc each, in parallel; the runtime's native
+   store `ray_tpu_torch/native/shm_store.cc` with g++ beside them), with
+   each kernel instance's registers, stack and spill bytes parsed from
+   ptxas' log (`ops/build/<name>.log`) and its dynamic shared memory and
+   blocks per SM from the CUDA runtime;
 3. kernels: `flash_attention_fwd` against its plain PyTorch version on
    the card at the serving shapes (GPT-2 prefill, Llama GQA, non-causal,
    the long-T regime, f32/fp16, head_dim 16/32/128) and the training
@@ -86,7 +87,27 @@ a non-zero exit) on any failed check:
    every bucket against its eager step function, the flash kernel ran
    for every target and draft prefill, no page leaked in either arena.
    Prints acceptance, rounds and tokens/s against plain;
-8. the `kernels` JSON line (every ported kernel with its numbers), the
+8. runtime: the port's own runtime (`ray_tpu_torch.init`): a node of its
+   GCS, raylet and workers on a 2 GiB shared-memory store (/dev/shm's
+   free space checked first), the card detected as its one `GPU`. A CPU
+   task sees CUDA_VISIBLE_DEVICES="" and no CUDA; a num_gpus=1 task sees
+   "0" and the card (its round trip is a GPU worker's start). A GPU
+   worker runs `flash_attention_fwd` on q/k/v of the `train` shape from
+   the store, against the plain version there, and its O equals the
+   driver's call bit for bit; it loads the driver's build. GPT-2 125M's
+   AdamW carry (592 tensors, 1.5 GB) goes through the store to a GPU
+   worker, which returns each leaf's checksum on the card (equal to the
+   driver's), and a 1 GiB CUDA tensor put in a GPU worker reaches the
+   driver on the card (put and get GB/s beside the host's memcpy GB/s).
+   A num_gpus=1 actor builds the GPT-2 engine of phase 6 (seed 1, every
+   bucket a graph) and answers its 8 prompts as concurrent calls: the
+   tokens equal phase 6's under the near-tie rule. While it lives a
+   second GPU task stays unscheduled; after `kill` it runs. Prints the
+   median round trip of a no-op CPU task and of an actor method over
+   200 calls, and tok/s beside phase 6's. `shutdown()` must leave no
+   process of the port's runtime and no /dev/shm/ray_tpu_torch_*
+   segment;
+9. the `kernels` JSON line (every ported kernel with its numbers), the
    card line, and last the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -97,12 +118,15 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import glob
 import json
+import os
 import re
 import statistics
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from functools import partial
 from pathlib import Path
@@ -111,6 +135,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch
+from ray_tpu_torch import native
 from ray_tpu_torch.models import gpt as gpt_mod
 from ray_tpu_torch.models import llama as llama_mod
 from ray_tpu_torch.ops import _build
@@ -452,15 +478,30 @@ def parse_ptxas(text):
     return rows
 
 
+def _timed(fn, *args):
+    t0 = time.perf_counter()
+    fn(*args)
+    return time.perf_counter() - t0
+
+
 def phase_build():
     """Builds every source; returns (seconds, {source: [instance, ...]})
     with ptxas' numbers and the runtime's dynamic shared memory and
     blocks per SM for each kernel instance."""
     t0 = time.perf_counter()
+    # the runtime's native store (g++) beside the kernels (nvcc)
+    native_s = {}
+    store = threading.Thread(target=lambda: native_s.update(
+        shm_store=_timed(native.build, "shm_store")))
+    store.start()
     seconds = _build.build()
+    store.join()
     wall = time.perf_counter() - t0
+    assert "shm_store" in native_s, "the native store did not build"
     print(f"build: {len(seconds)} source(s) compiled in {wall:.1f} s "
-          f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }; native store "
+          f"{native.library_path('shm_store')} in "
+          f"{native_s['shm_store']:.1f} s")
     occupancy = {(str(dt).replace("torch.", ""), d): kernel_occupancy(dt, d)
                  for dt in (torch.bfloat16, torch.float16, torch.float32)
                  for d in HEAD_DIMS}
@@ -1351,9 +1392,9 @@ def phase_engine(name, mod, cfg, net_cls, buckets, prompt_lens, max_new,
                          record_gaps=True)
     eager.warmup()
     eager_reqs, want, eager_s, _ = _serve(eager, prompts, max_new)
-    compared, ties = _near_tie_compare(
-        outs, want, [eager.gaps[r.id] for r in eager_reqs],
-        f"engine[{name}]")
+    eager_gaps = [eager.gaps[r.id] for r in eager_reqs]
+    compared, ties = _near_tie_compare(outs, want, eager_gaps,
+                                       f"engine[{name}]")
     eager_times = _step_times(eager, cfg, buckets)
 
     leaked = eng.shutdown() + eager.shutdown()
@@ -1375,6 +1416,8 @@ def phase_engine(name, mod, cfg, net_cls, buckets, prompt_lens, max_new,
                prefix_cache_hit_tokens=m["prefix_cache_hit_tokens"],
                first_logit_max_diff=worst, bucket_logit_diff=bucket_diff,
                compared_tokens=compared, near_ties=ties,
+               tokens=outs,
+               gaps=eager_gaps,
                observed=observed, leaked_pages=leaked,
                prefill_ms=graphed[0], decode_ms_b8=graphed[1],
                profiles=graphed[2], eager_prefill_ms=eager_times[0],
@@ -1522,6 +1565,440 @@ def phase_engine_spec(cfg, buckets, prompt_lens, max_new, seed,
     return rows
 
 
+# -- the runtime: the port's own cluster, with the card as a GPU resource ----
+
+RUNTIME_STORE_BYTES = 2 << 30      # the node's shared-memory store
+RUNTIME_QKV = (16, 1024, 12, 64)   # the `train` shape: B, T, H, D (bf16)
+RUNTIME_CUDA_PUT_BYTES = 1 << 30   # one CUDA tensor put from a GPU worker
+RUNTIME_RTT_CALLS = 200            # round trips timed per kind
+RUNTIME_MAX_NEW = 32
+
+
+def _checksum(t):
+    """An exact checksum of a tensor's bytes, the same on any device: the
+    sum of its words and of each word times its 1-based index, in int64
+    (wrapping alike everywhere)."""
+    flat = t.detach().reshape(-1)
+    word = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[flat.element_size()]
+    w = flat.view(word).to(torch.int64)
+    idx = torch.arange(1, w.numel() + 1, device=w.device, dtype=torch.int64)
+    return [int(w.sum()), int((w * idx).sum())]
+
+
+def _port_processes():
+    """Live processes of the port's runtime on this machine (GCS, raylet,
+    workers: `-m ray_tpu_torch._private.*`), zombies excluded."""
+    live = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read()
+            with open(f"/proc/{entry}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if state != "Z" and b"ray_tpu_torch._private." in cmd:
+            live.append(int(entry))
+    return live
+
+
+@ray_tpu_torch.remote
+def _rt_noop():
+    return None
+
+
+@ray_tpu_torch.remote
+def _rt_cpu_probe():
+    import torch
+    return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+            torch.cuda.is_available(), torch.cuda.device_count())
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def _rt_gpu_probe(device):
+    import torch
+    name = None
+    if device == "cuda":
+        torch.zeros(1, device="cuda")  # the CUDA context
+        name = torch.cuda.get_device_name(0)
+    return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+            torch.cuda.is_available(), torch.cuda.device_count(), name,
+            os.getpid())
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def _rt_flash_task(q, k, v, device):
+    """The forward kernel in a GPU worker on q/k/v from the store, held
+    against its plain version there; the launch count is 0 just before
+    the call and read just after it."""
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_attention_plain)
+    t0 = time.perf_counter()
+    if device == "cuda":
+        _build.load("flash_attention_fwd")  # the driver's build, no nvcc
+    load_s = time.perf_counter() - t0
+    q, k, v = (x.to(device) for x in (q, k, v))
+    with torch.inference_mode():
+        flash_attention.launches = 0
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        launches = flash_attention.launches
+        ref, ref_lse = flash_attention_plain(q, k, v, causal=True)
+    err = float((out.float() - ref.float()).abs().max())
+    lse_err = float((lse - ref_lse).abs().max())
+    return out.cpu(), launches, err, lse_err, load_s, os.getpid()
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def _rt_carry_task(refs, device):
+    """Gets the carry (refs[0]) from the store, moves it to the card and
+    returns each leaf's checksum there, with the seconds each part took:
+    the get, the first copy to the card (this process's first touch of
+    the store's pages) and a second copy of the same views."""
+    t0 = time.perf_counter()
+    carry = ray_tpu_torch.get(refs[0])
+    get_s = time.perf_counter() - t0
+    leaves = _tensor_leaves(carry)
+    to_device_s = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        moved = [x.to(device) for x in leaves]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        to_device_s.append(time.perf_counter() - t1)
+    return ([_checksum(x) for x in moved], get_s, to_device_s,
+            sum(x.nbytes for x in leaves), moved[0].device.type)
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def _rt_cuda_put_task(nbytes, seed, device):
+    """Puts one `nbytes` tensor that lives on the card; returns its ref
+    (in a list, so the caller's get times the fetch), its checksum and
+    the put's seconds."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = torch.randn(nbytes // 4, generator=gen, device=device)
+    sums = _checksum(t)
+    t0 = time.perf_counter()
+    ref = ray_tpu_torch.put(t)
+    put_s = time.perf_counter() - t0
+    return [ref], sums, put_s, t.device.type
+
+
+@ray_tpu_torch.remote(num_gpus=1, max_concurrency=16)
+class _EngineActor:
+    """GPT-2 with random weights from `seed` (as the `gpt` engine phase
+    builds it) served from a GPU actor: every bucket a CUDA graph
+    captured at `warmup()`, the pump thread started; `generate` is one
+    request, answered while other calls run concurrently."""
+
+    def __init__(self, cfg, seed, buckets, device):
+        from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = gpt_mod.init_params(cfg, gen, device=device)
+        t0 = time.perf_counter()
+        self.eng = LLMEngine(
+            model="gpt", model_cfg=cfg, params=params, device=device,
+            engine_config=EngineConfig(batch_buckets=(1, 2, 4, 8),
+                                       prefill_buckets=buckets))
+        self.eng.warmup()
+        self.warmup_s = time.perf_counter() - t0
+        self.eng.start()
+
+    def info(self):
+        return dict(warmup_s=self.warmup_s, pid=os.getpid(),
+                    visible=os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+    def reset_counts(self):
+        flash_attention.launches = 0
+        flash_attention_bwd.launches = 0
+
+    def counts(self):
+        return flash_attention.launches, flash_attention_bwd.launches
+
+    def generate(self, prompt, max_new):
+        return self.eng.submit(prompt, max_new).result(timeout=600)
+
+    def ping(self):
+        return None
+
+
+def _runtime_carry(device):
+    """GPT-2 125M's AdamW carry as the `train` phase builds it (f32 master
+    weights, moments, step counts; seed 3), after one AdamW step at B=2,
+    T=128 so the moments are not zero."""
+    cfg = gpt_mod.GPTConfig.gpt2_125m(remat=False)
+    model, inputs, targets = _train_setup("gpt", cfg, 3, 2, 128,
+                                          flash_attention, device)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4,
+                            capturable=torch.device(device).type == "cuda")
+    carry = _adamw_carry(model, opt)
+    _loss(model, inputs, targets).backward()
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return {key: {n: x.detach() for n, x in part.items()}
+            for key, part in carry.items()}
+
+
+def _memcpy_gbps(leaves):
+    """Host memcpy GB/s of the same bytes (a single-thread `np.copyto` of
+    each leaf into a buffer of its own, best of 3; bench.py's ceiling)."""
+    src = [x.reshape(-1).view(torch.uint8).numpy() for x in leaves]
+    dst = [np.empty_like(a) for a in src]
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for d, s in zip(dst, src):
+            np.copyto(d, s)
+        best = min(best, time.perf_counter() - t0)
+    return sum(a.nbytes for a in src) / best / 1e9
+
+
+def _median_rtt_ms(call, n):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_runtime(gpt, engine_cfg=None, buckets=GPT_BUCKETS,
+                  prompt_lens=GPT_PROMPT_LENS, carry_fn=_runtime_carry,
+                  qkv=RUNTIME_QKV, cuda_put_bytes=RUNTIME_CUDA_PUT_BYTES,
+                  store_bytes=RUNTIME_STORE_BYTES, device="cuda"):
+    """The port's runtime on the card (module docstring, phase 8): a node
+    of the port's own GCS, raylet and workers, the card detected as its
+    one `GPU`; the forward kernel in a GPU worker; the train carry and a
+    CUDA tensor through the store; the `gpt` phase's engine served from
+    a GPU actor; round trips; a clean shutdown. `gpt` is that phase's
+    row (its tokens, the eager run's top-2 gaps, tok/s)."""
+    card = card_line() if device == "cuda" else "cpu"
+    engine_cfg = engine_cfg or gpt_mod.GPTConfig.gpt2_125m()
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # a store larger than /dev/shm fails with SIGBUS, not an error
+    shm_free = shutil.disk_usage("/dev/shm").free
+    if shm_free < store_bytes:
+        raise RuntimeError(
+            f"runtime: /dev/shm has {shm_free} bytes free, under the store's "
+            f"{store_bytes}")
+    assert not _port_processes(), _port_processes()
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=2, object_store_memory=store_bytes,
+                       **({} if device == "cuda" else {"num_gpus": 1}))
+    init_s = time.perf_counter() - t0
+    try:
+        gpus = ray_tpu_torch.cluster_resources().get("GPU", 0)
+        want_gpus = torch.cuda.device_count() if device == "cuda" else 1
+        assert gpus == want_gpus == 1, (gpus, want_gpus)
+
+        # isolation; the first GPU task's round trip is a worker's start
+        cpu_visible, cpu_cuda, cpu_count = ray_tpu_torch.get(
+            _rt_cpu_probe.remote(), timeout=300)
+        assert cpu_visible == "" and not cpu_cuda and cpu_count == 0, (
+            cpu_visible, cpu_cuda, cpu_count)
+        t0 = time.perf_counter()
+        visible, has_cuda, n_dev, name, gpu_pid = ray_tpu_torch.get(
+            _rt_gpu_probe.remote(device), timeout=300)
+        gpu_start_s = time.perf_counter() - t0
+        assert visible == "0", visible
+        if device == "cuda":
+            assert has_cuda and n_dev == 1, (has_cuda, n_dev)
+            assert name == torch.cuda.get_device_name(0), name
+        print(f"runtime: node up in {init_s:.2f} s, GPU {gpus:.0f} detected "
+              f"(torch sees {want_gpus}); a CPU task sees "
+              f"CUDA_VISIBLE_DEVICES={cpu_visible!r}, cuda available "
+              f"{cpu_cuda}; a num_gpus=1 task sees {visible!r}, {name}; GPU "
+              f"worker start (spawn, torch import, CUDA context, to the first"
+              f" result) {gpu_start_s:.2f} s (card: {card})")
+
+        # the forward kernel in the worker, on tensors from the store
+        gen = torch.Generator().manual_seed(5)
+        b, t, h, d = qkv
+        q, k, v = (torch.randn(b, t, h, d, generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        refs = [ray_tpu_torch.put(x) for x in (q, k, v)]
+        out, w_launches, err, lse_err, load_s, flash_pid = ray_tpu_torch.get(
+            _rt_flash_task.remote(*refs, device), timeout=300)
+        tol_o, tol_lse = TOL[torch.bfloat16]
+        assert err <= tol_o and lse_err <= tol_lse, (err, lse_err)
+        with torch.inference_mode():
+            mine = flash_attention(*(x.to(device) for x in (q, k, v)),
+                                   causal=True).cpu()
+        assert out.dtype == mine.dtype and torch.equal(out, mine), \
+            "the worker's kernel output differs from the driver's"
+        if device == "cuda":
+            assert w_launches == 1, w_launches
+        del refs, out, mine
+        print(f"runtime: flash_attention_fwd in a GPU worker (pid "
+              f"{flash_pid}) on q/k/v {list(qkv)} bf16 from the store: "
+              f"{w_launches} launch(es), O err {err:.2e} lse err "
+              f"{lse_err:.2e} vs plain (tol {tol_o}/{tol_lse}), O equal to "
+              f"the driver's call bit for bit; kernel library load "
+              f"{load_s:.3f} s (the driver's build, no nvcc)")
+
+        # state at its real size: the carry through the store to the card
+        carry = carry_fn(device)
+        leaves = _tensor_leaves(carry)
+        sums = [_checksum(x) for x in leaves]
+        host = {key: {n: x.cpu() for n, x in part.items()}
+                for key, part in carry.items()}
+        del carry, leaves
+        host_leaves = _tensor_leaves(host)
+        nbytes = sum(x.nbytes for x in host_leaves)
+        memcpy_gbps = _memcpy_gbps(host_leaves)
+        t0 = time.perf_counter()
+        ref = ray_tpu_torch.put(host)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_sums, get_s, to_dev_s, got_bytes, where = ray_tpu_torch.get(
+            _rt_carry_task.remote([ref], device), timeout=600)
+        carry_task_s = time.perf_counter() - t0
+        assert where == torch.device(device).type, where
+        assert got_bytes == nbytes and got_sums == sums, (
+            "carry checksums differ",
+            [i for i, (a, c) in enumerate(zip(got_sums, sums)) if a != c])
+        # the same put again, once the first object is freed: the store
+        # places it in the pages this process has written before
+        del ref
+        gc.collect()
+        t0 = time.perf_counter()
+        ref = ray_tpu_torch.put(host)
+        put_again_s = time.perf_counter() - t0
+        del ref, host, host_leaves
+        carry_row = dict(leaves=len(sums), bytes=nbytes, put_s=put_s,
+                         put_gbps=nbytes / put_s / 1e9,
+                         put_again_s=put_again_s,
+                         put_again_gbps=nbytes / put_again_s / 1e9,
+                         get_s=get_s, get_gbps=nbytes / get_s / 1e9,
+                         to_device_s=to_dev_s,
+                         to_device_gbps=[nbytes / x / 1e9 for x in to_dev_s],
+                         task_s=carry_task_s, memcpy_gbps=memcpy_gbps)
+        print(f"runtime: AdamW carry, {len(sums)} tensors, {nbytes / 1e9:.3f}"
+              f" GB: put {put_s:.3f} s = {carry_row['put_gbps']:.2f} GB/s "
+              f"(again, into pages written before: {put_again_s:.3f} s = "
+              f"{carry_row['put_again_gbps']:.2f} GB/s), get in a GPU worker"
+              f" {get_s:.4f} s = {carry_row['get_gbps']:.1f} GB/s (views "
+              f"over the store), to the card {to_dev_s[0]:.3f} s = "
+              f"{carry_row['to_device_gbps'][0]:.2f} GB/s (again from the "
+              f"same views: {to_dev_s[1]:.3f} s = "
+              f"{carry_row['to_device_gbps'][1]:.2f} GB/s); host memcpy of "
+              f"the same bytes {memcpy_gbps:.2f} GB/s; every leaf's checksum"
+              f" on the card equals the driver's (card: {card})")
+
+        # one CUDA tensor put in a GPU worker, fetched by the driver
+        (tref,), t_sums, t_put_s, t_where = ray_tpu_torch.get(
+            _rt_cuda_put_task.remote(cuda_put_bytes, 7, device), timeout=300)
+        t0 = time.perf_counter()
+        fetched = ray_tpu_torch.get(tref, timeout=300)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t_get_s = time.perf_counter() - t0
+        assert t_where == fetched.device.type == torch.device(device).type, \
+            (t_where, fetched.device)
+        assert fetched.nbytes == cuda_put_bytes and \
+            _checksum(fetched) == t_sums
+        del tref, fetched
+        cuda_row = dict(bytes=cuda_put_bytes, put_s=t_put_s,
+                        put_gbps=cuda_put_bytes / t_put_s / 1e9,
+                        get_s=t_get_s,
+                        get_gbps=cuda_put_bytes / t_get_s / 1e9)
+        print(f"runtime: a {cuda_put_bytes / 2**30:.0f} GiB CUDA tensor put "
+              f"in a GPU worker {t_put_s:.3f} s = {cuda_row['put_gbps']:.2f}"
+              f" GB/s (card to host to store), fetched by the driver onto "
+              f"{t_where} in {t_get_s:.3f} s = {cuda_row['get_gbps']:.2f} "
+              f"GB/s, checksum equal (card: {card})")
+
+        # the GPT-2 engine served from a GPU actor
+        t0 = time.perf_counter()
+        actor = _EngineActor.remote(engine_cfg, 1, buckets, device)
+        info = ray_tpu_torch.get(actor.info.remote(), timeout=600)
+        actor_up_s = time.perf_counter() - t0
+        assert info["visible"] == "0", info
+        prompts = _prompts(engine_cfg, prompt_lens, 1)
+        ray_tpu_torch.get(actor.reset_counts.remote(), timeout=60)
+        t0 = time.perf_counter()
+        outs = ray_tpu_torch.get(
+            [actor.generate.remote(p, RUNTIME_MAX_NEW) for p in prompts],
+            timeout=600)
+        gen_s = time.perf_counter() - t0
+        a_fwd, a_bwd = ray_tpu_torch.get(actor.counts.remote(), timeout=60)
+        assert a_bwd == 0, a_bwd
+        if device == "cuda":
+            # one prefill per prompt, or a chunk step (no kernel) for a
+            # prompt that found its shared prefix cached
+            assert 0 < a_fwd <= engine_cfg.n_layer * len(prompts), a_fwd
+            assert a_fwd % engine_cfg.n_layer == 0, a_fwd
+        assert all(len(o) == RUNTIME_MAX_NEW for o in outs)
+        compared, ties = _near_tie_compare(outs, gpt["tokens"], gpt["gaps"],
+                                           "runtime actor")
+        n_tok = len(prompts) * RUNTIME_MAX_NEW
+        actor_rtt_ms = _median_rtt_ms(
+            lambda: ray_tpu_torch.get(actor.ping.remote(), timeout=60),
+            RUNTIME_RTT_CALLS)
+        task_rtt_ms = _median_rtt_ms(
+            lambda: ray_tpu_torch.get(_rt_noop.remote(), timeout=60),
+            RUNTIME_RTT_CALLS)
+        print(f"runtime: GPT-2 engine in a num_gpus=1 actor (pid "
+              f"{info['pid']}, CUDA_VISIBLE_DEVICES={info['visible']!r}) up "
+              f"in {actor_up_s:.2f} s (warm-up {info['warmup_s']:.2f} s); "
+              f"{len(prompts)} requests x {RUNTIME_MAX_NEW} tokens as "
+              f"concurrent calls in {gen_s:.3f} s = {n_tok / gen_s:.1f} tok/s"
+              f" (in-process `gpt` phase: {gpt['tokens_per_s']:.1f} tok/s); "
+              f"flash launches {a_fwd}; tokens equal to the `gpt` phase's: "
+              f"{compared} compared, {len(ties)} near-tie stop(s); median "
+              f"round trip over {RUNTIME_RTT_CALLS}: no-op CPU task "
+              f"{task_rtt_ms:.3f} ms, actor method {actor_rtt_ms:.3f} ms "
+              f"(card: {card})")
+
+        # the actor holds the GPU: another GPU task waits until the kill
+        waiting = _rt_gpu_probe.remote(device)
+        ready, _ = ray_tpu_torch.wait([waiting], timeout=2)
+        assert ready == [], "a GPU task ran while the actor held the GPU"
+        ray_tpu_torch.kill(actor)
+        t0 = time.perf_counter()
+        after_visible = ray_tpu_torch.get(waiting, timeout=300)[0]
+        after_kill_s = time.perf_counter() - t0
+        assert after_visible == "0", after_visible
+        print(f"runtime: a second num_gpus=1 task stayed unscheduled while "
+              f"the actor lived (wait 2 s: not ready) and ran "
+              f"{after_kill_s:.2f} s after kill(actor)")
+        live = _port_processes()
+        assert live, "no runtime process found before shutdown"
+    finally:
+        ray_tpu_torch.shutdown()
+    deadline = time.monotonic() + 30
+    while (_port_processes() or glob.glob("/dev/shm/ray_tpu_torch_*")) \
+            and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _port_processes()
+    segments = glob.glob("/dev/shm/ray_tpu_torch_*")
+    assert not left and not segments, (left, segments)
+    print(f"runtime: shutdown left no process of the port's session "
+          f"({len(live)} were up) and no /dev/shm/ray_tpu_torch_* segment")
+    return dict(
+        init_s=init_s, gpus=gpus, shm_free_bytes=shm_free,
+        store_bytes=store_bytes, cpu_task_visible=cpu_visible,
+        gpu_task_visible=visible, gpu_worker_start_s=gpu_start_s,
+        flash=dict(qkv=list(qkv), launches=w_launches, max_abs_err=err,
+                   lse_err=lse_err, library_load_s=load_s,
+                   bit_equal_to_driver=True),
+        carry=carry_row, cuda_tensor=cuda_row,
+        actor=dict(up_s=actor_up_s, warmup_s=info["warmup_s"],
+                   requests=len(prompts), new_tokens=n_tok, gen_s=gen_s,
+                   tokens_per_s=n_tok / gen_s,
+                   in_process_tokens_per_s=gpt["tokens_per_s"],
+                   flash_launches=a_fwd, compared_tokens=compared,
+                   near_ties=ties),
+        launches=w_launches + a_fwd,
+        task_rtt_ms=task_rtt_ms, actor_rtt_ms=actor_rtt_ms,
+        second_task_after_kill_s=after_kill_s, processes_at_end=len(live))
+
+
 def _numbers(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}
@@ -1547,7 +2024,7 @@ BWD_DESIGN = (
 
 
 def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
-                 spec, ptxas):
+                 spec, runtime, ptxas):
     """The `kernels` entries: every ported kernel with its numbers. The
     forward at the serving path's largest prefill shape (with the GPT-2
     run's launches per prefill bucket at that bucket's time), the
@@ -1555,7 +2032,8 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
     path's shape (`training_paths`). `launches` are
     the GPT-2 serving run's (forward) and the GPT-2 training run's
     (backward); `launches_*` the other main paths' (`engine_spec`: both
-    spec runs, and of them the draft prefills)."""
+    spec runs, and of them the draft prefills; `runtime`: the GPU
+    worker's and the GPU actor's engine, as they counted them)."""
     def at(table, shape):
         return next(r for r in table if r["shape"] == shape)
 
@@ -1598,6 +2076,7 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_engine_spec": sum(r["flash_launches"] for r in spec),
         "launches_engine_spec_draft_prefill": sum(
             r["draft_prefill_launches"] for r in spec),
+        "launches_runtime": runtime["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **_numbers(main_row),
         "at": MAIN_SHAPE,
@@ -1670,12 +2149,17 @@ def main() -> int:
     # the GPT-2 engine phase's weights, prompts and lengths, speculating
     spec = phase_engine_spec(gpt_mod.GPTConfig.gpt2_125m(), GPT_BUCKETS,
                              GPT_PROMPT_LENS, max_new=32, seed=1)
+    # the port's runtime: the GPT-2 engine phase's model from a GPU actor
+    runtime = phase_runtime(gpt)
+    for row in (gpt, llama):  # the runtime phase's references, not results
+        del row["tokens"], row["gaps"]
 
     kernels = kernels_line(rows, bwd_rows, train, train_llama, train_long,
-                           gpt, llama, spec, ptxas)
+                           gpt, llama, spec, runtime, ptxas)
     print(json.dumps({"build_s": build_s, "train": train,
                       "train_llama": train_llama, "train_long": train_long,
-                      "engines": [gpt, llama], "engine_spec": spec}))
+                      "engines": [gpt, llama], "engine_spec": spec,
+                      "runtime": runtime}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
 """Deadman watchdog: liveness proof for the port's hot loops.
 
 The port's own copy of `ray_tpu/_private/health.py`. A hot loop (the
-LLM engine's pump thread) registers a :class:`LoopProbe` and calls
+LLM engine's pump thread, the raylet's dispatch drain, the GCS's
+handler plane) registers a :class:`LoopProbe` and calls
 ``probe.beat()`` once per iteration: one integer increment, no lock, no
 syscall. A :class:`Watchdog` thread applies the deadman rule: a loop
 whose beat counter is FROZEN while its backlog probe says there is work
 is stalled. On detection it captures the culprit thread's stack via
-``sys._current_frames()``, emits a ``health.stalled`` structured event
+``sys._current_frames()`` (plus the locks it holds when lockdep is
+armed), emits a ``health.stalled`` structured event
 (`ray_tpu_torch.util.events`), and flips the
 ``health_loop_stalled{loop=}`` gauge of the port's metrics registry; the
 first beat after that emits ``health.recovered``.
@@ -14,8 +16,8 @@ first beat after that emits ``health.recovered``.
 A beat must never be taken under the watched loop's lock: a watchdog
 whose liveness signal needs the stalled lock could never fire.
 
-The cluster-wide stack dump (``dump_stacks`` over RPC) and the asyncio
-loop ticker come with the port of the runtime.
+``loop_ticker`` proves an asyncio loop alive; ``dump_stacks()`` is the
+per-process payload of the runtime's ``dump_stacks`` RPC.
 """
 
 from __future__ import annotations
@@ -89,6 +91,28 @@ def watch_loop(name: str,
         _probes[name] = probe
     _register_metrics()
     return probe
+
+
+def loop_ticker(probe: LoopProbe, interval_s: float = 0.5):
+    """Asyncio event-loop liveness ticker for a probe whose loop is
+    event-driven rather than free-running (the raylet dispatch drain,
+    the GCS handler plane): beats ride the loop itself, the backlog is
+    the constant "next tick", so the deadman rule reads exactly
+    'the event loop is blocked' — a legitimately quiet drain keeps
+    beating, a sync call wedging a handler freezes the ticker along
+    with every drain that shares the loop. Must be called from the
+    running loop; returns the ticker task (cancel to stop)."""
+    import asyncio
+
+    if probe.backlog_fn is None:
+        probe.backlog_fn = lambda: 1
+
+    async def _tick():
+        while True:
+            probe.beat()
+            await asyncio.sleep(interval_s)
+
+    return asyncio.ensure_future(_tick())
 
 
 def unwatch_loop(name: str) -> None:
@@ -169,11 +193,45 @@ def _format_stack(frame) -> str:
 
 
 def _held_locks_by_thread() -> Dict[int, List[str]]:
-    """{thread_ident: [lock names]} of the held tracked locks. The JAX
-    package reads them from its lock-order checker (`lockdep`), which
-    instruments the runtime's locks; the port has no runtime and no such
-    checker yet, so there is nothing to report."""
+    """{thread_ident: [lock names]} when lockdep is armed, else {}."""
+    try:
+        from ray_tpu_torch._private import lockdep
+
+        if lockdep.enabled():
+            return lockdep.held_locks()
+    except Exception:  # noqa: BLE001 — diagnosis must not raise
+        pass
     return {}
+
+
+def dump_stacks(include_locks: bool = True) -> List[Dict[str, Any]]:
+    """Every Python thread of this process: name, daemon flag, formatted
+    stack, held tracked locks (lockdep), and — when the thread drives a
+    registered loop probe — the probe's name and stall state. This is
+    the payload of the `dump_stacks` RPC."""
+    frames = sys._current_frames()
+    threads = {t.ident: t for t in threading.enumerate()}
+    held = _held_locks_by_thread() if include_locks else {}
+    by_ident = {p.thread_ident: p for p in probes()
+                if p.thread_ident is not None}
+    out: List[Dict[str, Any]] = []
+    for ident, frame in sorted(frames.items()):
+        t = threads.get(ident)
+        entry: Dict[str, Any] = {
+            "ident": ident,
+            "name": t.name if t is not None else f"thread-{ident}",
+            "daemon": bool(t.daemon) if t is not None else None,
+            "stack": _format_stack(frame),
+        }
+        if held.get(ident):
+            entry["held_locks"] = held[ident]
+        probe = by_ident.get(ident)
+        if probe is not None:
+            entry["loop"] = probe.name
+            if probe.stalled:
+                entry["stalled"] = True
+        out.append(entry)
+    return out
 
 
 def capture_thread_stack(ident: Optional[int]) -> str:

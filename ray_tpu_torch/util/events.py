@@ -6,8 +6,9 @@ appends one severity/label/source-tagged event to a JSONL shard per
 (source, pid), with the same size cap and rotation
 (`RAY_TPU_EVENTS_MAX_BYTES`, `RAY_TPU_EVENTS_KEEP`), and `list_events()`
 merges the shards. The directory is `RAY_TPU_EVENT_DIR`, by default
-`ray_tpu/events` under the temporary directory (`TMPDIR`). The async
-variant and the OTLP export come with the port of the runtime.
+`ray_tpu/events` under the temporary directory (`TMPDIR`).
+`report_async()` is `report()` for the runtime's async daemons. The OTLP
+export is not ported.
 """
 
 from __future__ import annotations
@@ -125,6 +126,20 @@ def report(source: str, severity: str, label: str, message: str,
     except OSError:
         pass
     return ev
+
+
+async def report_async(source: str, severity: str, label: str,
+                       message: str, **fields: Any) -> dict:
+    """`report` for async daemons (GCS/raylet handlers): the JSONL
+    append — a lazy open() on the shard's first event plus the write —
+    runs in the default executor so an event at a lifecycle transition
+    never stalls the RPC event loop behind disk latency."""
+    import asyncio
+    import functools
+
+    return await asyncio.get_running_loop().run_in_executor(
+        None, functools.partial(report, source, severity, label,
+                                message, **fields))
 
 
 def list_events(source: Optional[str] = None,

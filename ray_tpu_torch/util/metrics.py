@@ -5,12 +5,13 @@ nothing of the JAX package): one process-local registry backs the metric
 objects and scrape-time callbacks (`register_callback`), and renders the
 same Prometheus text. `DEFAULT_REGISTRY` here is the port's, separate
 from the JAX package's: the port's engine and compile cache register
-their callbacks on it. The `/metrics` HTTP endpoint (`serve_metrics`)
-comes with the port of the runtime's daemons.
+their callbacks on it. `serve_metrics` serves it as each daemon's
+`/metrics` HTTP endpoint.
 """
 
 from __future__ import annotations
 
+import asyncio
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -197,3 +198,46 @@ class Histogram(Metric):
                 f"{self.name}_count{_label_str(self.tag_keys, key)} "
                 f"{counts[key]}")
         return out
+
+
+async def serve_metrics(host: str = "127.0.0.1", port: int = 0,
+                        registry: Optional[_Registry] = None,
+                        extra_text=None):
+    """Serve `GET /metrics` in Prometheus text format on a raw asyncio
+    server (daemons must not depend on aiohttp). Returns (server, port).
+    `extra_text`: zero-arg callable appending daemon-specific gauges
+    computed at scrape time."""
+    reg = registry or DEFAULT_REGISTRY
+
+    async def handle(reader, writer):
+        try:
+            # consume the request head; path irrelevant — everything is
+            # /metrics. Bounded: an idle connection must not pin a task
+            # forever.
+            while True:
+                line = await asyncio.wait_for(reader.readline(),
+                                              timeout=5.0)
+                if not line or line in (b"\r\n", b"\n"):
+                    break
+            body = reg.prometheus_text()
+            if extra_text is not None:
+                body += extra_text()
+            # OpenMetrics-style terminator: scrapers use it to tell a
+            # complete exposition from a truncated one
+            body += "# EOF\n"
+            payload = body.encode()
+            writer.write(
+                b"HTTP/1.1 200 OK\r\n"
+                b"Content-Type: text/plain; version=0.0.4\r\n"
+                b"Content-Length: " + str(len(payload)).encode() +
+                b"\r\nConnection: close\r\n\r\n" + payload)
+            await writer.drain()
+        except (ConnectionResetError, BrokenPipeError,
+                asyncio.TimeoutError):
+            pass
+        finally:
+            writer.close()
+
+    server = await asyncio.start_server(handle, host, port)
+    actual_port = server.sockets[0].getsockname()[1]
+    return server, actual_port

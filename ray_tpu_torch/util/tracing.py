@@ -7,7 +7,9 @@ disabled), nested through a context variable, and `collect()` /
 `RAY_TPU_TRACE=1` and `RAY_TPU_TRACE_DIR` variables as the JAX package,
 so one setting traces both; the default directory is `ray_tpu/traces`
 under the temporary directory (`TMPDIR`). The runtime's task spans
-(`submit_span`, `execute_span`) come with the port of the runtime.
+(`submit_span`, `execute_span`) carry trace and parent ids through
+`TaskSpec.trace_ctx`, so spans from every process of a cluster stitch
+into one trace.
 """
 
 from __future__ import annotations
@@ -116,6 +118,31 @@ def current_context() -> Optional[Dict[str, str]]:
     if cur is None:
         return None
     return {"trace_id": cur["trace_id"], "span_id": cur["span_id"]}
+
+
+@contextlib.contextmanager
+def submit_span(task_name: str, task_type: str):
+    """Producer-side span; yields the ctx dict to ship in the spec
+    (None when tracing is off — zero wire overhead)."""
+    if not enabled():
+        yield None
+        return
+    with span(f"{task_name}.remote", kind="producer",
+              attrs={"task_type": task_type}) as s:
+        yield {"trace_id": s["trace_id"], "span_id": s["span_id"]}
+
+
+@contextlib.contextmanager
+def execute_span(spec) -> Iterator:
+    """Consumer-side span parented on the submitter's ctx."""
+    if not enabled():
+        yield
+        return
+    parent = getattr(spec, "trace_ctx", None)
+    with span(f"{spec.name}.execute", kind="consumer", parent=parent,
+              attrs={"task_type": spec.task_type,
+                     "task_id": spec.task_id.hex()}):
+        yield
 
 
 # -- aggregation ---------------------------------------------------------

@@ -93,3 +93,54 @@ def test_parse_ptxas_reads_each_kernel_instance():
             rows[1]["spill_load_bytes"]) == (8, 4, 12)
     assert rows[1]["smem_static_bytes"] == 256
     assert rows[2]["smem_static_bytes"] == 0
+
+
+# Two processes reach the native store's first build at once: each loads
+# the library (building it if nothing is there yet) and drives a store.
+_FIRST_BUILD = r'''
+import os, sys, time
+import ray_tpu_torch.native as native
+native.BUILD_DIR = sys.argv[1]
+while not os.path.exists(sys.argv[2]):
+    time.sleep(0.005)
+from ray_tpu_torch._private.ids import ObjectID
+from ray_tpu_torch._private.object_store import ObjectStore
+name = f"/ray_tpu_torch_buildtest_{os.getpid()}"
+store = ObjectStore.create(name, capacity=4 << 20, table_size=64)
+try:
+    oid = ObjectID.from_random()
+    store.put_value(oid, {"pid": os.getpid(), "data": list(range(100))})
+    got = store.get(oid)
+    assert got["pid"] == os.getpid() and got["data"] == list(range(100))
+finally:
+    store.destroy()
+print(native.library_path("shm_store"))
+'''
+
+
+def test_concurrent_first_build_of_the_native_store(tmp_path):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from ray_tpu_torch import native
+
+    root = Path(__file__).resolve().parent.parent
+    build_dir, go = tmp_path / "build", tmp_path / "go"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _FIRST_BUILD, str(build_dir), str(go)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for _ in range(2)]
+    go.touch()
+    outs = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err[-3000:]
+        outs.append(out.strip())
+    expected = str(build_dir / os.path.basename(
+        native.library_path("shm_store")))
+    assert outs == [expected, expected]
+    # one whole library, no temporary left behind
+    assert sorted(os.listdir(build_dir)) == [".lock",
+                                             os.path.basename(expected)]

@@ -4,7 +4,11 @@ the engine on the CPU, a tiny training step on CUDA against the same
 step on the CPU, the engine's CUDA graphs (`compiled_step`) against its
 eager step functions, and the train plane's graphs (a miss runs the
 step once, autograd inside a graph, donation, `fold_steps`,
-`TrainStepRunner`'s static aux, checkpoints restored into a live carry).
+`TrainStepRunner`'s static aux, checkpoints restored into a live carry),
+and the port's runtime with the card as its GPU (the forward kernel in
+a GPU worker on tensors from the store, a CUDA tensor put in a GPU
+worker fetched by the driver onto the card, a CPU worker that cannot
+see the card).
 
 Every test here needs an NVIDIA GPU and `nvcc` and skips without them.
 On a machine with a card (and no JAX), run them with
@@ -12,11 +16,14 @@ On a machine with a card (and no JAX), run them with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import ray_tpu_torch  # noqa: E402
 from ray_tpu_torch.ops.flash_attention import (  # noqa: E402
     BWD_KERNELS_PER_CALL, flash_attention, flash_attention_bwd,
     flash_attention_bwd_plain, flash_attention_plain)
@@ -800,3 +807,67 @@ def test_graph_capture_of_a_host_sync_in_backward_fails(cuda):
         f(w)
     torch.cuda.synchronize()
     assert cache.size() == 0 and cache.stats.misses == 1
+
+
+# -- the port's runtime on the card ---------------------------------------
+
+@pytest.fixture(scope="module")
+def runtime():
+    """A node of the port's runtime; it detects the card as its GPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ray_tpu_torch.init(num_cpus=2, object_store_memory=512 << 20)
+    try:
+        assert ray_tpu_torch.cluster_resources()["GPU"] == \
+            torch.cuda.device_count()
+        yield ray_tpu_torch
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def _flash_in_gpu_worker(q, k, v):
+    with torch.inference_mode():
+        out = flash_attention(q.cuda(), k.cuda(), v.cuda(), causal=True)
+    return out.cpu(), os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def _put_a_cuda_tensor(n):
+    t = torch.arange(n, dtype=torch.float32, device="cuda") * 0.5
+    return [ray_tpu_torch.put(t)]
+
+
+@ray_tpu_torch.remote
+def _cpu_worker_view():
+    return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+            torch.cuda.is_available(), torch.cuda.device_count())
+
+
+def test_gpu_task_runs_the_kernel_on_store_tensors(runtime):
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 200, 4, 64, generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    refs = [runtime.put(x) for x in (q, k, v)]
+    out, visible = runtime.get(_flash_in_gpu_worker.remote(*refs),
+                               timeout=300)
+    with torch.inference_mode():
+        mine = flash_attention(q.cuda(), k.cuda(), v.cuda(),
+                               causal=True).cpu()
+    assert visible == "0"
+    assert out.dtype == torch.bfloat16 and torch.equal(out, mine)
+
+
+def test_cuda_tensor_put_in_a_gpu_worker_arrives_on_cuda(runtime):
+    n = 3_000_000
+    (ref,) = runtime.get(_put_a_cuda_tensor.remote(n), timeout=300)
+    got = runtime.get(ref, timeout=300)
+    assert got.device.type == "cuda"
+    assert torch.equal(got, torch.arange(n, dtype=torch.float32,
+                                         device="cuda") * 0.5)
+
+
+def test_cpu_worker_cannot_see_the_card(runtime):
+    visible, available, count = runtime.get(_cpu_worker_view.remote(),
+                                            timeout=300)
+    assert (visible, available, count) == ("", False, 0)

@@ -5,6 +5,8 @@ Checked two ways: a fresh interpreter imports every module of the
 package and chip_smoke's imports, then inspects `sys.modules`; and an
 AST scan of every source file finds no such import statement (which
 also catches imports inside functions that the first check never runs).
+A third check keeps the runtime light: the package and its daemons' and
+workers' modules import without torch.
 """
 
 import ast
@@ -49,6 +51,25 @@ def test_import_leaves_no_jax_or_ray_tpu_in_sys_modules():
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, f"the port imported {bad}"
     assert "ray_tpu_torch.serve.llm.engine" in loaded
+
+
+def test_runtime_modules_leave_torch_unimported():
+    runtime = ["ray_tpu_torch", "ray_tpu_torch._private.gcs",
+               "ray_tpu_torch._private.raylet", "ray_tpu_torch._private.node",
+               "ray_tpu_torch._private.worker_main",
+               "ray_tpu_torch._private.serialization"]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {runtime!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "torch" not in loaded
+    assert not [m for m in loaded if _forbidden(m)]
+    assert "ray_tpu_torch._private.core_worker" in loaded
 
 
 @pytest.mark.parametrize("path", sorted(
