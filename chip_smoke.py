@@ -107,7 +107,31 @@ a non-zero exit) on any failed check:
    200 calls, and tok/s beside phase 6's. `shutdown()` must leave no
    process of the port's runtime and no /dev/shm/ray_tpu_torch_*
    segment;
-9. the `kernels` JSON line (every ported kernel with its numbers), the
+9. serve: the port's Serve. `serve.run(serve.llm.build_app(name="llm",
+   model="gpt", model_config=<GPT-2 125M>, seed=1, device="cuda"))` on a
+   node of the port's runtime (the card its one `GPU`, a 1 GiB store):
+   one num_gpus=1 replica holding the card, the engine of phase 6 (same
+   seed, buckets, every bucket a graph). Its 8 prompts go through the
+   `DeploymentHandle` as concurrent streams, 32 tokens each, once on the
+   Python router path and once, on a second node with
+   RAY_TPU_NATIVE_DISPATCH=1 for the driver and every worker, on the
+   native request ring (built from `ray_tpu_torch/native/
+   request_ring.cc`; its `stats()` must show the requests enqueued and
+   drained). Checks on each: the tokens equal phase 6's under the
+   near-tie rule, the forward kernel ran n_layer times per prefill in
+   the replica (counts at 0 just before, read just after) and the
+   backward never, one client record per request. On the ring's node
+   the replica is killed while a stream runs: the card's free memory
+   comes back to within the arena's bytes + 256 MiB of its value before
+   the deployment, the controller reclaims the dead replica's arena
+   record (`serve_llm_arenas_reclaimed_total` 1), the stream resumes on
+   the replacement and equals the replacement's own answer, whose first
+   32 tokens are phase 6's. Prints the replica's time to come up, tok/s,
+   TTFT and TPOT p50/p90 (request recorder), the replacement's first
+   token after the kill. Each shutdown leaves no process, no
+   /dev/shm/ray_tpu_torch_* segment (store, ring, FIFOs) and the card's
+   memory back;
+10. the `kernels` JSON line (every ported kernel with its numbers), the
    card line, and last the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -136,7 +160,10 @@ import torch
 import torch.nn.functional as F
 
 import ray_tpu_torch
-from ray_tpu_torch import native
+from ray_tpu_torch import native, serve
+from ray_tpu_torch._private.ids import ObjectID
+from ray_tpu_torch._private.object_ref import get_core_worker
+from ray_tpu_torch._private.worker_api import ActorMethod
 from ray_tpu_torch.models import gpt as gpt_mod
 from ray_tpu_torch.models import llama as llama_mod
 from ray_tpu_torch.ops import _build
@@ -150,6 +177,7 @@ from ray_tpu_torch.ops.flash_attention import (BWD_KERNELS_PER_CALL,
 from ray_tpu_torch.ops.fused_ce import fused_cross_entropy
 from ray_tpu_torch.parallel import cache_stats, global_cache, stack_batches
 from ray_tpu_torch.parallel.ring_attention import full_attention
+from ray_tpu_torch.serve import dispatch
 from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
 from ray_tpu_torch.train import TrainStepRunner, array_checkpoint
 from ray_tpu_torch.util import metrics, request_recorder, step_profiler
@@ -484,24 +512,33 @@ def _timed(fn, *args):
     return time.perf_counter() - t0
 
 
+# the native sources (g++): the runtime's store, Serve's request ring
+NATIVE_SOURCES = ("shm_store", "request_ring")
+
+
 def phase_build():
     """Builds every source; returns (seconds, {source: [instance, ...]})
     with ptxas' numbers and the runtime's dynamic shared memory and
     blocks per SM for each kernel instance."""
     t0 = time.perf_counter()
-    # the runtime's native store (g++) beside the kernels (nvcc)
+    # the runtime's native store and Serve's request ring (g++) beside
+    # the kernels (nvcc)
     native_s = {}
-    store = threading.Thread(target=lambda: native_s.update(
-        shm_store=_timed(native.build, "shm_store")))
-    store.start()
+    builders = [threading.Thread(target=lambda name=name: native_s.update(
+        {name: _timed(native.build, name)}))
+        for name in NATIVE_SOURCES]
+    for t in builders:
+        t.start()
     seconds = _build.build()
-    store.join()
+    for t in builders:
+        t.join()
     wall = time.perf_counter() - t0
-    assert "shm_store" in native_s, "the native store did not build"
+    missing = [name for name in NATIVE_SOURCES if name not in native_s]
+    assert not missing, f"the native sources {missing} did not build"
     print(f"build: {len(seconds)} source(s) compiled in {wall:.1f} s "
-          f"{ {k: round(v, 1) for k, v in seconds.items()} }; native store "
-          f"{native.library_path('shm_store')} in "
-          f"{native_s['shm_store']:.1f} s")
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }; native "
+          + "; ".join(f"{native.library_path(name)} in "
+                      f"{native_s[name]:.1f} s" for name in NATIVE_SOURCES))
     occupancy = {(str(dt).replace("torch.", ""), d): kernel_occupancy(dt, d)
                  for dt in (torch.bfloat16, torch.float16, torch.float32)
                  for d in HEAD_DIMS}
@@ -1572,6 +1609,7 @@ RUNTIME_QKV = (16, 1024, 12, 64)   # the `train` shape: B, T, H, D (bf16)
 RUNTIME_CUDA_PUT_BYTES = 1 << 30   # one CUDA tensor put from a GPU worker
 RUNTIME_RTT_CALLS = 200            # round trips timed per kind
 RUNTIME_MAX_NEW = 32
+SERVE_MAX_NEW = 32
 
 
 def _checksum(t):
@@ -1603,6 +1641,19 @@ def _port_processes():
         if state != "Z" and b"ray_tpu_torch._private." in cmd:
             live.append(int(entry))
     return live
+
+
+def _assert_clean():
+    """After a shutdown: no process of the port's runtime and no
+    /dev/shm/ray_tpu_torch_* segment (stores, rings, FIFOs) is left,
+    waiting up to 30 s for them to go."""
+    deadline = time.monotonic() + 30
+    while (_port_processes() or glob.glob("/dev/shm/ray_tpu_torch_*")) \
+            and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _port_processes()
+    segments = glob.glob("/dev/shm/ray_tpu_torch_*")
+    assert not left and not segments, (left, segments)
 
 
 @ray_tpu_torch.remote
@@ -1971,13 +2022,7 @@ def phase_runtime(gpt, engine_cfg=None, buckets=GPT_BUCKETS,
         assert live, "no runtime process found before shutdown"
     finally:
         ray_tpu_torch.shutdown()
-    deadline = time.monotonic() + 30
-    while (_port_processes() or glob.glob("/dev/shm/ray_tpu_torch_*")) \
-            and time.monotonic() < deadline:
-        time.sleep(0.2)
-    left = _port_processes()
-    segments = glob.glob("/dev/shm/ray_tpu_torch_*")
-    assert not left and not segments, (left, segments)
+    _assert_clean()
     print(f"runtime: shutdown left no process of the port's session "
           f"({len(live)} were up) and no /dev/shm/ray_tpu_torch_* segment")
     return dict(
@@ -1997,6 +2042,363 @@ def phase_runtime(gpt, engine_cfg=None, buckets=GPT_BUCKETS,
         launches=w_launches + a_fwd,
         task_rtt_ms=task_rtt_ms, actor_rtt_ms=actor_rtt_ms,
         second_task_after_kill_s=after_kill_s, processes_at_end=len(live))
+
+
+SERVE_STORE_BYTES = 1 << 30       # the node's shared-memory store
+SERVE_MEM_SLACK = 256 << 20       # the card's free memory may stay under
+SERVE_KILL_MAX_NEW = 256          # the stream the kill lands in
+SERVE_KILL_AFTER = 4              # tokens delivered before the kill
+
+
+def _model_config(cfg):
+    """A model config as the plain dict a deployment takes (dtypes by
+    name)."""
+    return {f.name: (str(v).replace("torch.", "")
+                     if isinstance(v, torch.dtype) else v)
+            for f in dataclasses.fields(cfg)
+            for v in (getattr(cfg, f.name),)}
+
+
+def _consume(gen, out, stamps, failover, arrived=None, n=0):
+    """Reads a streaming response to its end on the calling thread: the
+    tokens into `out`, each one's monotonic arrival time into `stamps`
+    and whether the stream had failed over by then into `failover`;
+    sets `arrived` once `n` tokens are in."""
+    for chunk in gen:
+        out.append(chunk["token"])
+        stamps.append(time.monotonic())
+        failover.append(bool(getattr(gen, "_failed_over", False)))
+        if arrived is not None and len(out) >= n:
+            arrived.set()
+
+
+def _serve_streams(handle, prompts, max_new):
+    """The prompts as concurrent `generate` streams through the handle,
+    submitted at once and each read on a thread of its own; returns (the
+    tokens, seconds, the stream types)."""
+    outs = [[] for _ in prompts]
+    errors = []
+    t0 = time.perf_counter()
+    gens = [handle.generate.options(stream=True).remote(p, max_new)
+            for p in prompts]
+
+    def read(i):
+        try:
+            _consume(gens[i], outs[i], [], [])
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=read, args=(i,))
+               for i in range(len(gens))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    gen_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    assert not any(t.is_alive() for t in threads), "a stream never ended"
+    return outs, gen_s, sorted({type(g).__name__ for g in gens})
+
+
+def _pcts(values):
+    return ([float(np.percentile(values, q)) for q in (50, 90)]
+            if values else [None, None])
+
+
+def _client_records(name):
+    return [r for r in request_recorder.ring().recent()
+            if r.role == "client" and r.deployment == name]
+
+
+def _serve_ring(name):
+    """The deployment's native segment, once its replica attached it."""
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        try:
+            ring = dispatch.DispatchRing(dispatch.domain_segment(name),
+                                         create=False)
+        except FileNotFoundError:
+            time.sleep(0.05)
+            continue
+        if ring.mode() == dispatch.MODE_RAW_LLM:
+            return ring
+        ring.close()
+        time.sleep(0.05)
+    raise AssertionError(f"serve: no replica attached the ring of {name!r}")
+
+
+def _free_card_bytes(device):
+    return torch.cuda.mem_get_info()[0] if device == "cuda" else 0
+
+
+def _wait_free(device, floor, timeout):
+    """Polls the card's free memory until it reaches `floor`; returns
+    (the most seen, seconds)."""
+    t0 = time.monotonic()
+    best = _free_card_bytes(device)
+    while best < floor and time.monotonic() - t0 < timeout:
+        time.sleep(0.02)
+        best = max(best, _free_card_bytes(device))
+    return best, time.monotonic() - t0
+
+
+def _serve_kill(handle, prompt, gpt_tokens, gpt_gaps, free0, device):
+    """Kills the replica while a stream runs on the Python path: the
+    memory it held comes back to the card, the controller reclaims its
+    arena and counts it, and the stream resumes on the replacement,
+    which answers the prompt again with the same tokens."""
+    ctrl = ray_tpu_torch.get_actor("SERVE_CONTROLLER")
+    ray_tpu_torch.get(ctrl.reconcile_now.remote(), timeout=120)
+    (replica,) = ray_tpu_torch.get(ctrl.get_replicas.remote("llm"),
+                                   timeout=60)["replicas"]
+    arena = ray_tpu_torch.get(replica.get_metrics.remote(),
+                              timeout=60)["kv_arena_id"]
+    store = get_core_worker().store
+    oid = ObjectID.from_hex(arena)
+    buf = store.get_buffer(oid, timeout=0)
+    # on the card the store holds the arena's record; on the CPU the
+    # arena itself
+    record = json.loads(bytes(buf)) if device == "cuda" else dict(
+        device="cpu", nbytes=buf.nbytes)
+    del buf
+    store.release(oid)
+    assert record["device"].startswith(device) and record["nbytes"] > 0, \
+        record
+    tokens, stamps, failover = [], [], []
+    arrived = threading.Event()
+    errors = []
+    gen = handle.generate.options(stream=True).remote(prompt,
+                                                      SERVE_KILL_MAX_NEW)
+    assert type(gen).__name__ == "DeploymentResponseGenerator"
+
+    def read():
+        try:
+            _consume(gen, tokens, stamps, failover, arrived,
+                     SERVE_KILL_AFTER)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    reader = threading.Thread(target=read)
+    reader.start()
+    assert arrived.wait(300), "serve: the stream did not start"
+    ray_tpu_torch.kill(replica)
+    t_kill = time.monotonic()
+    killed_at = len(tokens)
+    # the dead process's device memory (weights, arena, graphs) returns
+    floor = free0 - record["nbytes"] - SERVE_MEM_SLACK
+    free_after, free_s = _wait_free(device, floor, 60)
+    if device == "cuda":
+        assert free_after >= floor, (
+            f"serve: the card's free memory came back to {free_after} "
+            f"bytes, under {floor} (before the deployment {free0}, arena "
+            f"{record['nbytes']})")
+    deadline = time.monotonic() + 120
+    while arena not in ray_tpu_torch.get(ctrl.get_reclaimed_arenas.remote(),
+                                         timeout=60):
+        assert time.monotonic() < deadline, "serve: the arena was not " \
+            "reclaimed"
+        ray_tpu_torch.get(ctrl.reconcile_now.remote(), timeout=120)
+        time.sleep(0.2)
+    text = ray_tpu_torch.get(ActorMethod(ctrl, "_metrics_text").remote(),
+                             timeout=60)
+    reclaimed_total = next(int(ln.split()[1]) for ln in text.splitlines()
+                           if ln.startswith(
+                               "serve_llm_arenas_reclaimed_total "))
+    assert reclaimed_total == 1, text
+    assert not store.contains(oid), "serve: the arena record is still there"
+    reader.join(timeout=600)
+    if errors:
+        raise errors[0]
+    assert not reader.is_alive(), "serve: the resumed stream never ended"
+    assert len(tokens) == SERVE_KILL_MAX_NEW and any(failover), (
+        len(tokens), killed_at, "the kill did not land mid-stream")
+    first_new = next(t for t, f in zip(stamps, failover) if f)
+    rerun = handle.generate_once.remote(prompt, SERVE_KILL_MAX_NEW).result(
+        timeout=600)
+    assert rerun == tokens, "serve: the resumed stream differs from the " \
+        "replacement's answer"
+    compared, ties = _near_tie_compare([rerun[:len(gpt_tokens)]],
+                                       [gpt_tokens], [gpt_gaps],
+                                       "serve replacement")
+    (fo,) = [r for r in _client_records("llm")
+             if r.outcome == "failed_over"]
+    return dict(arena_id=arena, arena_record=record,
+                reclaimed=ray_tpu_torch.get(
+                    ctrl.get_reclaimed_arenas.remote(), timeout=60),
+                reclaimed_total=reclaimed_total,
+                killed_after_tokens=killed_at,
+                replacement_first_token_s=first_new - t_kill,
+                replayed_tokens=fo.replayed_tokens,
+                free_before_deploy=free0, free_after_kill=free_after,
+                free_after_kill_s=free_s, free_floor=floor,
+                compared_tokens=compared, near_ties=ties)
+
+
+def _serve_cluster(path, gpt, cfg, buckets, prompts, store_bytes, free0,
+                   device):
+    """One node of the port's runtime, the GPT-2 deployment on it, the
+    prompts through the handle (RAY_TPU_NATIVE_DISPATCH=1 in the driver's
+    and every worker's environment for `path="ring"`); on the ring
+    cluster also the kill of the replica; then a clean shutdown."""
+    card = card_line() if device == "cuda" else "cpu"
+    ring_path = path == "ring"
+    if ring_path:
+        os.environ[dispatch.ENV_FLAG] = "1"
+        native.load_request_ring()  # a ring that does not build fails
+        assert dispatch.native_available()
+    else:
+        os.environ.pop(dispatch.ENV_FLAG, None)
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=store_bytes,
+                       **({} if device == "cuda" else {"num_gpus": 1}))
+    try:
+        t0 = time.perf_counter()
+        handle = serve.run(serve.llm.build_app(
+            name="llm", model="gpt", model_config=_model_config(cfg),
+            engine_config=dict(batch_buckets=(1, 2, 4, 8),
+                               prefill_buckets=buckets),
+            seed=1, device=device,
+            # the CPU rehearsal's faked GPU, as `cuda` asks by default
+            **({} if device == "cuda" else
+               {"ray_actor_options": {"num_gpus": 1}})))
+        run_s = time.perf_counter() - t0  # the controller, the deploy
+        m0 = handle.engine_metrics.remote().result(timeout=900)
+        up_s = time.perf_counter() - t0
+        assert ray_tpu_torch.available_resources().get("GPU", 0) == 0, \
+            "serve: the replica does not hold the GPU"
+        ring = _serve_ring("llm") if ring_path else None
+        stats0 = ring.stats() if ring_path else None
+        request_recorder.clear()
+        # the main path: counts at 0 just before, read just after
+        handle.kernel_launches.remote(reset=True).result(timeout=60)
+        outs, gen_s, kinds = _serve_streams(handle, prompts, SERVE_MAX_NEW)
+        launches = handle.kernel_launches.remote().result(timeout=60)
+        m1 = handle.engine_metrics.remote().result(timeout=60)
+        fwd, bwd = (launches["flash_attention"],
+                    launches["flash_attention_bwd"])
+        want_kind = ("NativeDeploymentResponseGenerator" if ring_path
+                     else "DeploymentResponseGenerator")
+        assert kinds == [want_kind], kinds
+        assert all(len(o) == SERVE_MAX_NEW for o in outs)
+        compared, ties = _near_tie_compare(outs, gpt["tokens"], gpt["gaps"],
+                                           f"serve[{path}]")
+        prefills = sum(
+            c - m0["compiled_step_calls"].get(k, 0)
+            for k, c in m1["compiled_step_calls"].items()
+            if k.startswith("prefill:"))
+        assert bwd == 0, bwd
+        if device == "cuda":
+            assert fwd == cfg.n_layer * prefills > 0, (fwd, prefills)
+        ring_row = None
+        if ring_path:
+            s = ring.stats()
+            ring_row = {k: s[k] - stats0[k] for k in s}
+            assert ring_row["enqueued"] >= len(prompts) and \
+                ring_row["drained"] >= len(prompts), ring_row
+            ring.close()
+        # one client record per stream (the unary control calls above
+        # leave records without tokens)
+        recs = [r for r in _client_records("llm") if r.tokens_out]
+        assert len(recs) == len(prompts) and all(
+            r.tokens_out == SERVE_MAX_NEW and r.outcome == "ok"
+            for r in recs), [(r.tokens_out, r.outcome) for r in recs]
+        ttft = _pcts([r.ttft_ms for r in recs if r.ttft_ms is not None])
+        tpot = _pcts([r.tpot_ms for r in recs if r.tpot_ms is not None])
+        n_tok = len(prompts) * SERVE_MAX_NEW
+        row = dict(up_s=up_s, run_s=run_s, requests=len(prompts),
+                   new_tokens=n_tok,
+                   gen_s=gen_s, tokens_per_s=n_tok / gen_s,
+                   in_process_tokens_per_s=gpt["tokens_per_s"],
+                   ttft_ms_p50_p90=ttft, tpot_ms_p50_p90=tpot,
+                   flash_launches=fwd, prefills=prefills,
+                   compared_tokens=compared, near_ties=ties,
+                   stream=want_kind, ring=ring_row)
+        print(f"serve[{path}]: GPT-2 125M replica (num_gpus=1) up in "
+              f"{up_s:.2f} s (`serve.run` {run_s:.2f} s: the controller's "
+              f"start and the deploy; then the GPU worker's start, the "
+              f"engine's weights, warm-up and graph capture); "
+              f"{len(prompts)} concurrent {want_kind} streams x "
+              f"{SERVE_MAX_NEW} tokens in {gen_s:.3f} s = "
+              f"{n_tok / gen_s:.1f} tok/s (in-process `gpt` phase "
+              f"{gpt['tokens_per_s']:.1f}); TTFT p50/p90 "
+              f"{ttft[0]:.2f}/{ttft[1]:.2f} ms, TPOT p50/p90 "
+              f"{tpot[0]:.3f}/{tpot[1]:.3f} ms (request recorder, client "
+              f"records); flash launches in the replica {fwd} = "
+              f"{cfg.n_layer} x {prefills} prefills; tokens equal to the "
+              f"`gpt` phase's: {compared} compared, {len(ties)} near-tie "
+              f"stop(s)"
+              + (f"; ring enqueued {ring_row['enqueued']} drained "
+                 f"{ring_row['drained']} in {ring_row['drain_batches']} "
+                 f"batches" if ring_path else "")
+              + f" (card: {card})")
+        if ring_path:
+            # the kill stream takes the Python path: a native stream has
+            # no failover (as in the JAX package)
+            os.environ.pop(dispatch.ENV_FLAG, None)
+            row["kill"] = kill = _serve_kill(
+                handle, prompts[0], gpt["tokens"][0], gpt["gaps"][0], free0,
+                device)
+            print(f"serve[kill]: the replica killed after "
+                  f"{kill['killed_after_tokens']} of {SERVE_KILL_MAX_NEW} "
+                  f"streamed tokens; the card's free memory back to "
+                  f"{kill['free_after_kill'] / 2**30:.2f} GiB in "
+                  f"{kill['free_after_kill_s']:.2f} s (before the deployment"
+                  f" {free0 / 2**30:.2f} GiB, floor "
+                  f"{kill['free_floor'] / 2**30:.2f}: arena "
+                  f"{kill['arena_record']['nbytes'] / 2**20:.1f} MiB + 256 "
+                  f"MiB); arena {kill['arena_id'][:12]} reclaimed, "
+                  f"serve_llm_arenas_reclaimed_total "
+                  f"{kill['reclaimed_total']}; the stream resumed on the "
+                  f"replacement ({kill['replayed_tokens']} replayed), its "
+                  f"first token {kill['replacement_first_token_s']:.2f} s "
+                  f"after the kill; the replacement's answer equals the "
+                  f"stream and the `gpt` phase's tokens "
+                  f"({kill['compared_tokens']} compared, "
+                  f"{len(kill['near_ties'])} near-tie stop(s)) (card: "
+                  f"{card})")
+    finally:
+        os.environ.pop(dispatch.ENV_FLAG, None)
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    _assert_clean()
+    free_end, free_end_s = _wait_free(device, free0 - SERVE_MEM_SLACK, 60)
+    if device == "cuda":
+        assert free_end >= free0 - SERVE_MEM_SLACK, (free0, free_end)
+    row.update(free_after_shutdown=free_end)
+    print(f"serve[{path}]: shutdown left no process of the port's session "
+          f"and no /dev/shm/ray_tpu_torch_* segment (store, ring, FIFOs);"
+          f" the card's free memory {free_end / 2**30:.2f} GiB (before "
+          f"{free0 / 2**30:.2f})")
+    return row
+
+
+def phase_serve(gpt, engine_cfg=None, buckets=GPT_BUCKETS,
+                prompt_lens=GPT_PROMPT_LENS, store_bytes=SERVE_STORE_BYTES,
+                device="cuda"):
+    """The port's Serve on the card (module docstring, phase 9): GPT-2
+    125M from a num_gpus=1 replica through the handle, on the Python
+    router path and on the native request ring, each in a node of its
+    own; on the ring's node the replica is killed mid-stream. `gpt` is
+    the `gpt` phase's row (its tokens, the eager run's top-2 gaps,
+    tok/s)."""
+    engine_cfg = engine_cfg or gpt_mod.GPTConfig.gpt2_125m()
+    prompts = _prompts(engine_cfg, prompt_lens, 1)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    shm_free = shutil.disk_usage("/dev/shm").free
+    if shm_free < store_bytes:
+        raise RuntimeError(
+            f"serve: /dev/shm has {shm_free} bytes free, under the store's "
+            f"{store_bytes}")
+    assert not _port_processes(), _port_processes()
+    free0 = _free_card_bytes(device)
+    rows = {path: _serve_cluster(path, gpt, engine_cfg, buckets, prompts,
+                                 store_bytes, free0, device)
+            for path in ("python", "ring")}
+    return dict(paths=rows, free_before=free0,
+                launches=sum(r["flash_launches"] for r in rows.values()))
 
 
 def _numbers(row):
@@ -2024,7 +2426,7 @@ BWD_DESIGN = (
 
 
 def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
-                 spec, runtime, ptxas):
+                 spec, runtime, serve_row, ptxas):
     """The `kernels` entries: every ported kernel with its numbers. The
     forward at the serving path's largest prefill shape (with the GPT-2
     run's launches per prefill bucket at that bucket's time), the
@@ -2033,7 +2435,8 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
     the GPT-2 serving run's (forward) and the GPT-2 training run's
     (backward); `launches_*` the other main paths' (`engine_spec`: both
     spec runs, and of them the draft prefills; `runtime`: the GPU
-    worker's and the GPU actor's engine, as they counted them)."""
+    worker's and the GPU actor's engine, as they counted them; `serve`:
+    the GPU replica's, on both paths)."""
     def at(table, shape):
         return next(r for r in table if r["shape"] == shape)
 
@@ -2077,6 +2480,7 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_engine_spec_draft_prefill": sum(
             r["draft_prefill_launches"] for r in spec),
         "launches_runtime": runtime["launches"],
+        "launches_serve": serve_row["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **_numbers(main_row),
         "at": MAIN_SHAPE,
@@ -2151,15 +2555,17 @@ def main() -> int:
                              GPT_PROMPT_LENS, max_new=32, seed=1)
     # the port's runtime: the GPT-2 engine phase's model from a GPU actor
     runtime = phase_runtime(gpt)
-    for row in (gpt, llama):  # the runtime phase's references, not results
+    # Serve: the GPT-2 engine phase's model from a GPU replica
+    serve_row = phase_serve(gpt)
+    for row in (gpt, llama):  # the later phases' references, not results
         del row["tokens"], row["gaps"]
 
     kernels = kernels_line(rows, bwd_rows, train, train_llama, train_long,
-                           gpt, llama, spec, runtime, ptxas)
+                           gpt, llama, spec, runtime, serve_row, ptxas)
     print(json.dumps({"build_s": build_s, "train": train,
                       "train_llama": train_llama, "train_long": train_long,
                       "engines": [gpt, llama], "engine_spec": spec,
-                      "runtime": runtime}))
+                      "runtime": runtime, "serve": serve_row}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,10 @@ from ray_tpu_torch._private.rpc import (
 
 logger = logging.getLogger(__name__)
 
+# seconds a killed worker gets to leave through its task loop before it
+# is ended (`rpc_exit_worker`)
+KILL_GRACE_S = 1.0
+
 
 class RayTaskError(Exception):
     """A task raised; carries the remote traceback (reference:
@@ -2647,7 +2651,24 @@ class CoreWorker:
     async def rpc_exit_worker(self, req):
         logger.info("exit requested: %s", req.get("reason"))
         self._exec_queue.put(None)
+        # A kill interrupts the actor's running methods (reference:
+        # ray.kill fails them at once): an idle worker leaves through the
+        # task loop's sentinel and its orderly exit (cleanup, exit hooks)
+        # runs to its end; one still inside a method (a stream, a long
+        # call) KILL_GRACE_S later is ended, so it cannot keep the
+        # process, and with it the worker's GPU and device memory, past
+        # the kill. A daemon thread, not the event loop: the sentinel's
+        # shutdown stops the loop, then waits for the method's thread.
+        # The JAX package only queues the sentinel.
+        threading.Thread(target=self._end_methods_after_kill, daemon=True,
+                         name="kill_grace").start()
         return None
+
+    def _end_methods_after_kill(self) -> None:
+        while True:
+            time.sleep(KILL_GRACE_S)
+            if self._running_threads or self._running_async:
+                os._exit(1)
 
     async def rpc_cancel_task(self, req):
         """Executor side of ray_tpu_torch.cancel (reference: RemoteCancelTask,

@@ -925,7 +925,10 @@ class GcsServer:
 
     async def _kill_actor(self, actor_id: bytes, reason: str):
         info = self.actors.get(actor_id)
-        if info is None:
+        # a second kill of a dead actor (a controller reaping a replica
+        # its driver killed) has no worker left to tell; the JAX GCS
+        # dials the dead worker's address and waits out the connect
+        if info is None or info["state"] == DEAD:
             return
         addr = info.get("addr")
         info["state"] = DEAD

@@ -642,7 +642,10 @@ def get_actor(name: str) -> ActorHandle:
         return state.client.get_actor(name)
     cw = state.core_worker
     reply = cw._run_sync(cw.gcs.call("get_actor", {"name": name}))
-    if not reply.get("found"):
+    # a dead actor's name is free again (reference: ray.get_actor raises
+    # for it); the JAX package hands back the dead actor, so a Serve
+    # restarted after `serve.shutdown()` found the killed controller
+    if not reply.get("found") or reply.get("state") == "DEAD":
         raise ValueError(f"no actor named {name!r}")
     return ActorHandle(ActorID(reply["actor_id"]))
 

@@ -9,8 +9,9 @@ edited source is rebuilt and a stale library is never loaded. The GCS,
 the raylet, every worker and the driver may reach the first build at
 once: the build runs under an exclusive file lock (`build/.lock`), into
 a temporary name, and is renamed into place, so a process loads either
-nothing or a whole library. The dispatch ring (`request_ring.cc`) comes
-with the port of Serve.
+nothing or a whole library. The serve dispatch ring (`request_ring.cc`,
+a copy of the JAX package's source) is built the same way by
+`load_request_ring`.
 """
 
 from __future__ import annotations
@@ -190,4 +191,90 @@ def load_shm_store() -> ctypes.CDLL:
         ctypes.c_int,
     ]
     lib.ss_memcpy_mt.restype = None
+    return lib
+
+
+def load_request_ring() -> ctypes.CDLL:
+    """Load (building on demand) the native dispatch-ring library
+    (request_ring.cc — the zero-Python serve dispatch plane)."""
+    lib = ctypes.CDLL(build("request_ring"))
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.rr_open.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_uint32,  # table_cap (== sub-ring count)
+        ctypes.c_uint32,  # slots per sub-ring (rounded to pow2)
+        ctypes.c_uint32,  # payload bytes per slot
+    ]
+    lib.rr_open.restype = ctypes.c_int
+    lib.rr_detach.argtypes = [ctypes.c_int]
+    lib.rr_detach.restype = ctypes.c_int
+    lib.rr_unlink.argtypes = [ctypes.c_char_p]
+    lib.rr_unlink.restype = ctypes.c_int
+    for name in ("rr_table_cap", "rr_slots", "rr_slot_bytes", "rr_mode"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_uint32
+    lib.rr_set_mode.argtypes = [ctypes.c_int, ctypes.c_uint32]
+    lib.rr_set_mode.restype = ctypes.c_int
+    lib.rr_snapshot_version.argtypes = [ctypes.c_int]
+    lib.rr_snapshot_version.restype = ctypes.c_uint64
+    lib.rr_publish.argtypes = [
+        ctypes.c_int,
+        ctypes.c_uint64,  # replica-set version
+        u64p,             # replica ids
+        ctypes.c_uint32,
+    ]
+    lib.rr_publish.restype = ctypes.c_int
+    lib.rr_mark_dead.argtypes = [ctypes.c_int, ctypes.c_uint64]
+    lib.rr_mark_dead.restype = ctypes.c_int
+    lib.rr_done.argtypes = [
+        ctypes.c_int,
+        ctypes.c_uint64,  # replica id
+        ctypes.c_uint32,  # generation the inflight++ hit (ABA guard)
+    ]
+    lib.rr_done.restype = ctypes.c_int
+    lib.rr_enqueue.argtypes = [
+        ctypes.c_int,
+        ctypes.c_char_p,
+        ctypes.c_uint32,  # payload len
+        ctypes.c_uint64,  # deadline (CLOCK_MONOTONIC ns, 0 = none)
+        ctypes.c_uint64,  # client cookie (response-ring routing)
+        ctypes.c_uint32,  # tag
+        u64p,             # out: trace id
+        u64p,             # out: chosen replica id
+        ctypes.POINTER(ctypes.c_uint32),  # out: generation
+    ]
+    lib.rr_enqueue.restype = ctypes.c_int64
+    lib.rr_enqueue_to.argtypes = [
+        ctypes.c_int,
+        ctypes.c_uint32,  # sub-ring index
+        ctypes.c_char_p,
+        ctypes.c_uint32,  # payload len
+        ctypes.c_uint64,  # trace (caller-supplied: response correlation)
+        ctypes.c_uint64,  # client cookie
+        ctypes.c_uint32,  # tag
+    ]
+    lib.rr_enqueue_to.restype = ctypes.c_int64
+    lib.rr_ring_of.argtypes = [ctypes.c_int, ctypes.c_uint64]
+    lib.rr_ring_of.restype = ctypes.c_int
+    lib.rr_drain.argtypes = [
+        ctypes.c_int,
+        ctypes.c_uint32,  # sub-ring index
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_uint64,  # out buffer capacity
+        ctypes.c_uint32,  # max frames
+        u64p,             # out: bytes written
+    ]
+    lib.rr_drain.restype = ctypes.c_int64
+    lib.rr_pending.argtypes = [ctypes.c_int, ctypes.c_uint32]
+    lib.rr_pending.restype = ctypes.c_int64
+    lib.rr_stats.argtypes = [ctypes.c_int, u64p]
+    lib.rr_stats.restype = None
+    lib.rr_snapshot.argtypes = [
+        ctypes.c_int,
+        u64p,             # out rows ({id, gen, inflight, alive, ring} x5)
+        ctypes.c_uint32,  # row capacity
+        u64p,             # out: published version
+    ]
+    lib.rr_snapshot.restype = ctypes.c_int
     return lib

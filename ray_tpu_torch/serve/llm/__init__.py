@@ -1,29 +1,39 @@
-"""serve.llm — LLM inference plane of the port: a paged KV cache in
-device memory (`kv_cache.py`) and the continuous-batching engine on the
-compiled-step cache, one CUDA graph per bucket (`engine.py`). The Serve
-deployment and `reclaim_arena` come with the port of the runtime.
+"""serve.llm — LLM inference plane of the port.
+
+Paged KV cache in device memory (`kv_cache.py`) + the continuous-batching
+engine on the compiled-step cache, one CUDA graph per bucket
+(`engine.py`) + a Serve deployment streaming tokens over
+`handle_request_streaming` (`deployment.py`), as in the JAX package's
+`ray_tpu/serve/llm`.
+
+The names load lazily (PEP 562): Serve's controller unpickles
+`LLMDeployment` and imports `reclaim_arena` without importing torch, as
+the JAX controller never imports jax; replicas pay for torch when they
+build their engine.
 """
 
-from ray_tpu_torch.serve.llm.kv_cache import (
-    KVCacheError,
-    OutOfPagesError,
-    PagedKVCache,
-    PrefixCache,
-)
-from ray_tpu_torch.serve.llm.engine import (
-    EngineConfig,
-    LLMEngine,
-    Request,
-    RequestRejected,
-)
+import importlib
 
-__all__ = [
-    "EngineConfig",
-    "KVCacheError",
-    "LLMEngine",
-    "OutOfPagesError",
-    "PagedKVCache",
-    "PrefixCache",
-    "Request",
-    "RequestRejected",
-]
+_EXPORTS = {
+    "KVCacheError": "kv_cache",
+    "OutOfPagesError": "kv_cache",
+    "PagedKVCache": "kv_cache",
+    "PrefixCache": "kv_cache",
+    "reclaim_arena": "kv_cache",
+    "EngineConfig": "engine",
+    "LLMEngine": "engine",
+    "Request": "engine",
+    "RequestRejected": "engine",
+    "LLMDeployment": "deployment",
+    "build_app": "deployment",
+}
+
+
+def __getattr__(name: str):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)
+
+
+__all__ = sorted(_EXPORTS)

@@ -50,8 +50,14 @@ is recorded by the step profiler (`util.step_profiler`); the `/metrics`
 text is a `serve_llm` callback on the port's registry (`util.metrics`);
 and the pump thread beats a deadman probe (`_private.health`).
 
-Not ported yet: the native dispatch-ring intake and the shared-memory
-arena (`store=`, with its `kv_arena_id`).
+Serve's native request ring feeds the engine directly, as in the JAX
+engine: a replica attaches its sub-ring (`attach_intake`) and the pump
+thread drains raw request frames right before each `step()`, on the
+thread that replays the graphs, outside any capture; tokens ship
+straight onto the requester's response ring through each request's
+`sink`. With `store=` (the node's shared-memory store) the KV arena is
+published there under `metrics()["kv_arena_id"]` for dead-replica
+reclaim (`kv_cache.reclaim_arena`).
 """
 
 from __future__ import annotations
@@ -170,6 +176,10 @@ class Request:
         self.max_new_tokens = max_new_tokens
         self.deadline = deadline
         self.out_q: "queue.Queue" = queue.Queue()
+        # dispatch plane v2: when set, engine-side events ship through
+        # this callable (straight onto the requester's response ring)
+        # instead of accumulating in out_q, which nothing would read
+        self.sink = None
         self.tokens: List[int] = []   # generated tokens, in order
         self.done = threading.Event()
         self.error: Optional[str] = None
@@ -222,18 +232,27 @@ class Request:
             self.first_token_ts = now
         self.last_token_ts = now
         self.tokens.append(token)
-        self.out_q.put(("token", len(self.tokens) - 1, token))
+        if self.sink is not None:
+            self.sink("token", len(self.tokens) - 1, token)
+        else:
+            self.out_q.put(("token", len(self.tokens) - 1, token))
 
     def _finish(self, reason: str):
         self.finish_reason = reason
         self.finish_ts = time.monotonic()
-        self.out_q.put(("done", reason))
+        if self.sink is not None:
+            self.sink("done", reason)
+        else:
+            self.out_q.put(("done", reason))
         self.done.set()
 
     def _fail(self, msg: str):
         self.error = msg
         self.finish_ts = time.monotonic()
-        self.out_q.put(("error", msg))
+        if self.sink is not None:
+            self.sink("error", msg)
+        else:
+            self.out_q.put(("error", msg))
         self.done.set()
 
 
@@ -290,12 +309,16 @@ class LLMEngine:
     On a CUDA device every bucket's step function is a captured CUDA
     graph in one memory pool of the engine's own (its graphs never run
     at the same time); `warmup()` captures them all.
+
+    `store=None` keeps the KV arena process-local; passing the node's
+    shared-memory `ObjectStore` publishes it there, where a controller
+    can reclaim it if this replica dies (`kv_cache` module docstring).
     """
 
     def __init__(self, model: str = "llama", model_cfg=None, params=None,
                  engine_config: Optional[EngineConfig] = None,
                  seed: int = 0, device=None, draft_cfg=None,
-                 draft_params=None):
+                 draft_params=None, store=None):
         if model == "llama":
             from ray_tpu_torch.models import llama as mod
             self.model_cfg = model_cfg or mod.LlamaConfig.tiny(
@@ -324,7 +347,7 @@ class LLMEngine:
         # prefill runs the hand-written flash-attention kernel
         self.net = net_cls.from_params(self.model_cfg, params,
                                        attention_fn=flash_attention)
-        self.kv = self._arena(self.model_cfg, cfg.num_pages)
+        self.kv = self._arena(self.model_cfg, cfg.num_pages, store=store)
         self.prefix = PrefixCache(self.kv) if cfg.prefix_cache else None
         # one chunk width (B=1, C=_chunk_size) covers both chunked
         # prefill windows and prefix-cache-hit suffixes
@@ -394,6 +417,9 @@ class LLMEngine:
         self._waiting: List[Request] = []
         self._prefilling: List[_Sequence] = []
         self._running: List[_Sequence] = []
+        # dispatch plane v2: (ring, sub-ring index, deployment) once a
+        # replica attaches its native intake — drained by the pump
+        self._intake = None
         self._lock = threading.Lock()       # guards queues + counters
         self._step_lock = threading.Lock()  # serializes step()
         self._work = threading.Event()
@@ -420,12 +446,13 @@ class LLMEngine:
         _metrics.DEFAULT_REGISTRY.register_callback(
             "serve_llm", self._metrics_text)
 
-    def _arena(self, model_cfg, num_pages: int) -> PagedKVCache:
+    def _arena(self, model_cfg, num_pages: int,
+               store=None) -> PagedKVCache:
         kvh = getattr(model_cfg, "n_kv_head", model_cfg.n_head)
         return PagedKVCache(
             num_pages, model_cfg.n_layer, self.config.block_size, kvh,
             model_cfg.d_model // model_cfg.n_head, dtype=model_cfg.dtype,
-            device=self.device)
+            device=self.device, store=store)
 
     # -- step functions ---------------------------------------------------
     # One function per bucket, named as in the JAX engine; each closes
@@ -1029,6 +1056,81 @@ class LLMEngine:
             outcome=outcome, job=req.tenant,
             finish_reason=req.finish_reason or req.error or "")
 
+    # -- native intake (dispatch plane v2) --------------------------------
+
+    def attach_intake(self, ring, idx: int, deployment: str) -> None:
+        """Drain raw request frames from the native dispatch ring inside
+        the pump loop: the batch drain runs on the engine thread right
+        before step(), so the only per-batch Python entry is the decode
+        itself — no pickle, no actor RPC, no per-request task."""
+        self._intake = (ring, idx, deployment)
+        self._work.set()
+
+    def _drain_intake(self) -> bool:
+        it = self._intake
+        if it is None:
+            return False
+        ring, idx, deployment = it
+        frames = ring.drain(idx, max_frames=64)
+        for f in frames:
+            self._admit_frame(ring, f, deployment)
+        return bool(frames)
+
+    def _admit_frame(self, ring, f, deployment: str) -> None:
+        """Admit one natively-dispatched frame: decode the raw prompt,
+        submit under the adopted trace context (recorder attribution
+        stays intact — the natively-minted id IS the request id), and
+        wire a sink that ships token/terminal frames straight onto the
+        requester's response ring. `rr_done` fires on the terminal
+        event with the enqueue's generation, so the shared snapshot's
+        in-flight count balances even across replica churn."""
+        from ray_tpu_torch.serve import dispatch as _dispatch
+
+        def _ship(resp, payload: bytes, tag: int) -> None:
+            if resp is None:
+                return
+            for _ in range(400):  # bounded spin on a wedged reader
+                if resp.enqueue_to(0, payload, trace=f.trace, tag=tag):
+                    return
+                time.sleep(0.002)
+
+        resp = _dispatch.response_ring(f.client)
+        try:
+            prompt, max_new, job = _dispatch.decode_llm_request(f.payload)
+        except Exception:
+            ring.done(f.rid, f.gen)
+            return
+        ctx = _rr.adopt_context(f.trace_id, deployment, job)
+        timeout_s = None
+        if f.deadline_ns:
+            timeout_s = max(0.001, f.deadline_ns / 1e9 - time.monotonic())
+        try:
+            with _rr.serving(ctx):
+                req = self.submit(prompt, max_new,
+                                  request_id=f.trace_id,
+                                  timeout_s=timeout_s, tenant=job)
+        except Exception as e:  # noqa: BLE001 — shipped to caller
+            _ship(resp, f"{type(e).__name__}: {e}".encode()[:256],
+                  _dispatch.TAG_ERROR)
+            ring.done(f.rid, f.gen)
+            return
+
+        def sink(kind: str, *rest) -> None:
+            if kind == "token":
+                _ship(resp, _dispatch._LLM_TOK.pack(rest[0], rest[1]),
+                      _dispatch.TAG_TOKEN)
+                return
+            if kind == "done":
+                _ship(resp, (rest[0] or "stop").encode()[:256],
+                      _dispatch.TAG_DONE)
+            else:
+                _ship(resp, (rest[0] or "error").encode()[:256],
+                      _dispatch.TAG_ERROR)
+            ring.done(f.rid, f.gen)
+
+        # safe after submit: emission happens in step(), on this thread
+        req.sink = sink
+
     # -- pump thread ------------------------------------------------------
 
     def _probe_name(self) -> str:
@@ -1054,9 +1156,17 @@ class LLMEngine:
     def _pump(self):
         while not self._stop.is_set():
             self._pump_probe.beat()
-            if not self.step():
+            drained = self._drain_intake()
+            if not self.step() and not drained:
                 self._work.clear()
-                self._work.wait(0.02)
+                it = self._intake
+                if it is not None:
+                    # park on the ring's wakeup FIFO so a native enqueue
+                    # wakes the pump without a poll; local submits still
+                    # set _work, observed at the next bounded slice
+                    it[0].wait(it[1], 0.02)
+                else:
+                    self._work.wait(0.02)
 
     def stop(self):
         self._stop.set()
@@ -1137,6 +1247,7 @@ class LLMEngine:
                 kv_pages_cached=self.kv.cached_pages,
                 kv_pages_total=self.kv.num_pages,
                 kv_page_utilization=self.kv.utilization(),
+                kv_arena_id=self.kv.arena_id_hex,
                 model=self.model_name,
                 spec_k=self.config.spec_k,
                 compiled_step_calls={

@@ -21,20 +21,32 @@ page's tail is still being appended to), so a shared page is immutable
 by construction — aliasing is a page-table edit plus a refcount, never a
 byte copy.
 
-The JAX package can also place the arena in the node's shared-memory
-object store (`store=`) and reclaim a dead replica's arena by id; those
-come with the port of the runtime.
+On a dead replica the arena is reclaimed store-side by id
+(`reclaim_arena`), as in the JAX package: with `store=` the arena's id
+names a sealed object in the node's shared-memory store, so peers on the
+node see it via `contains` and force-delete it even though the dead
+process never released its creator reference. On the CPU that object IS
+the arena (a tensor view over the store's bytes, as the JAX arena is a
+numpy view). On the card the arena stays device memory, read in place
+by the captured decode graphs, and the CUDA driver frees it when the
+process exits; the store object is then a small arena RECORD (shape,
+dtype, device index, bytes, pid, as JSON), so the controller's reclaim
+and its counter behave as in the JAX package.
 """
 
 from __future__ import annotations
 
+import json
+import math
+import os
 import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
-import torch
-
 from ray_tpu_torch import resolve_device
+
+# torch is imported where a cache touches tensors, not with the module:
+# Serve's controller imports `reclaim_arena` and never needs torch
 
 
 class KVCacheError(RuntimeError):
@@ -51,11 +63,19 @@ class PagedKVCache:
     `k_pages`/`v_pages` are views [num_pages, n_layer, block_size,
     n_kv_head, head_dim] of the arena, handed to the decode forward with
     per-sequence page-table rows.
+
+    `store=None` keeps the arena process-local; with the node's
+    `ObjectStore` it is published there under `arena_id_hex` (the arena
+    itself on the CPU, the arena record on the card; module docstring).
     """
 
     def __init__(self, num_pages: int, n_layer: int, block_size: int,
                  n_kv_head: int, head_dim: int,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 store=None):
+        import torch
+
+        dtype = dtype or torch.float32
         if num_pages <= 0 or block_size <= 0:
             raise KVCacheError("num_pages and block_size must be positive")
         self.num_pages = num_pages
@@ -65,9 +85,34 @@ class PagedKVCache:
         self.head_dim = head_dim
         self.dtype = dtype
         self.device = resolve_device(device)
+        self._store = store
+        self._arena_id = None
         self._lock = threading.Lock()
         shape = (2, num_pages, n_layer, block_size, n_kv_head, head_dim)
-        self._arena = torch.zeros(shape, dtype=dtype, device=self.device)
+        nbytes = math.prod(shape) * dtype.itemsize
+        if store is not None:
+            from ray_tpu_torch._private.ids import ObjectID
+            self._arena_id = ObjectID.from_random()
+            if self.device.type == "cpu":
+                buf = store.create_buffer(self._arena_id, nbytes)
+                self._arena = torch.frombuffer(buf, dtype=dtype).view(shape)
+            else:
+                self._arena = torch.empty(shape, dtype=dtype,
+                                          device=self.device)
+                record = json.dumps({
+                    "shape": list(shape), "dtype": str(dtype),
+                    "device": str(self._arena.device), "nbytes": nbytes,
+                    "pid": os.getpid()}).encode()
+                buf = store.create_buffer(self._arena_id, len(record))
+                buf[:] = record
+            # Seal immediately (the arena stays mutable through our view;
+            # seal only publishes the id so `contains`/`delete` work from
+            # peer processes for dead-replica reclaim). The creator
+            # reference is kept until close().
+            store.seal(self._arena_id)
+            self._arena.zero_()
+        else:
+            self._arena = torch.zeros(shape, dtype=dtype, device=self.device)
         self.k_pages = self._arena[0]
         self.v_pages = self._arena[1]
         # LIFO free list: recently-freed pages are re-used first (warm)
@@ -80,6 +125,14 @@ class PagedKVCache:
         self._closed = False
 
     # -- allocation -------------------------------------------------------
+
+    @property
+    def arena_id_hex(self) -> Optional[str]:
+        return self._arena_id.hex() if self._arena_id is not None else None
+
+    @property
+    def arena_nbytes(self) -> int:
+        return int(self._arena.nbytes)
 
     @property
     def free_pages(self) -> int:
@@ -198,6 +251,8 @@ class PagedKVCache:
         head_dim]) for positions [start, start+n) across the sequence's
         pages (chunked prefill passes start > 0, which need not be
         page-aligned). One index-copy each for K and V."""
+        import torch
+
         pos = torch.arange(start, start + n)
         page_of = torch.as_tensor(pages, dtype=torch.long)[
             pos // self.block_size]
@@ -210,6 +265,8 @@ class PagedKVCache:
 
     def _on_arena(self, x):
         # tensors already on the arena's device and dtype pass unchanged
+        import torch
+
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
     # -- lifecycle --------------------------------------------------------
@@ -247,6 +304,12 @@ class PagedKVCache:
                                 for h in hs))
             self.k_pages = self.v_pages = None
             self._arena = None
+            if self._store is not None and self._arena_id is not None:
+                try:
+                    self._store.release(self._arena_id)
+                    self._store.delete(self._arena_id)
+                except Exception:
+                    pass  # store already torn down
             return leaked
 
     def _check_open(self):
@@ -390,3 +453,21 @@ class PrefixCache:
             out = dict(self.counters)
             out["entries"] = len(self._entries)
             return out
+
+
+def reclaim_arena(arena_id_hex: str, store=None) -> bool:
+    """Force-delete a (possibly dead) replica's KV arena by id from any
+    process attached to the same node store. Returns True when the arena
+    was present and is now gone."""
+    if store is None:
+        from ray_tpu_torch._private.object_ref import get_core_worker
+        cw = get_core_worker()
+        if cw is None or cw.store is None:
+            return False
+        store = cw.store
+    from ray_tpu_torch._private.ids import ObjectID
+    oid = ObjectID.from_hex(arena_id_hex)
+    if not store.contains(oid):
+        return False
+    store.delete(oid)
+    return not store.contains(oid)

@@ -144,3 +144,56 @@ def test_concurrent_first_build_of_the_native_store(tmp_path):
     # one whole library, no temporary left behind
     assert sorted(os.listdir(build_dir)) == [".lock",
                                              os.path.basename(expected)]
+
+
+# The same race for Serve's request ring: each process loads the ring
+# library (building it if nothing is there yet) and drives one ring.
+_RING_FIRST_BUILD = r'''
+import os, sys, time
+import ray_tpu_torch.native as native
+native.BUILD_DIR = sys.argv[1]
+while not os.path.exists(sys.argv[2]):
+    time.sleep(0.005)
+from ray_tpu_torch.serve import dispatch
+seg = f"/{dispatch.SEGMENT_PREFIX}buildtest{os.getpid():x}"
+ring = dispatch.DispatchRing(seg, table_cap=2, slots=64, slot_bytes=64)
+try:
+    ring.publish(1, [7])
+    trace, rid, gen = ring.enqueue(b"frame")
+    frames = ring.drain(ring.ring_of(7))
+    assert [f.payload for f in frames] == [b"frame"] and rid == 7
+    assert ring.done(rid, gen)
+finally:
+    ring.close(unlink=True)
+print(native.library_path("request_ring"))
+'''
+
+
+def test_concurrent_first_build_of_the_request_ring(tmp_path):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from ray_tpu_torch import native
+
+    root = Path(__file__).resolve().parent.parent
+    build_dir, go = tmp_path / "build", tmp_path / "go"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RING_FIRST_BUILD, str(build_dir), str(go)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for _ in range(2)]
+    go.touch()
+    outs = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err[-3000:]
+        outs.append(out.strip())
+    expected = str(build_dir / os.path.basename(
+        native.library_path("request_ring")))
+    assert outs == [expected, expected]
+    # the library is built from the port's own source, never the JAX
+    # package's build
+    assert "ray_tpu_torch" in native.library_path("request_ring")
+    assert sorted(os.listdir(build_dir)) == [".lock",
+                                             os.path.basename(expected)]

@@ -17,6 +17,7 @@ On a machine with a card (and no JAX), run them with
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -871,3 +872,67 @@ def test_cpu_worker_cannot_see_the_card(runtime):
     visible, available, count = runtime.get(_cpu_worker_view.remote(),
                                             timeout=300)
     assert (visible, available, count) == ("", False, 0)
+
+
+# -- Serve on the card: a GPU replica --------------------------------------
+
+def test_gpu_replica_serves_bound_to_the_card(runtime):
+    """`build_app` on CUDA: the replica holds the card (num_gpus=1, its
+    CUDA_VISIBLE_DEVICES names it, the node's GPU is taken while it
+    lives), answers with the tokens of an in-process engine drawn from
+    the same seed on the card, and publishes its arena record."""
+    import json
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.ids import ObjectID
+    from ray_tpu_torch._private.object_ref import get_core_worker
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+
+    ecfg = {"batch_buckets": (1, 2), "prefill_buckets": (16, 32)}
+    eng = LLMEngine(model="gpt", seed=3, device="cuda",
+                    engine_config=EngineConfig(**ecfg))
+    want = eng.submit([5, 9, 3, 7], 8)
+    eng.run_until_idle(timeout=120)
+    want = want.result(timeout=60)
+    eng.shutdown()
+    handle = serve.run(serve.llm.build_app(
+        name="llm-card", model="gpt", seed=3, engine_config=ecfg))
+    try:
+        m = handle.engine_metrics.remote().result(timeout=300)
+        assert runtime.available_resources().get("GPU", 0) == 0
+        assert handle.generate_once.remote([5, 9, 3, 7], 8).result(
+            timeout=120) == want
+        store = get_core_worker().store
+        oid = ObjectID.from_hex(m["kv_arena_id"])
+        record = json.loads(bytes(store.get_buffer(oid, timeout=0)))
+        store.release(oid)
+        assert record["device"] == "cuda:0" and record["nbytes"] > 0
+    finally:
+        serve.shutdown()
+    deadline = time.monotonic() + 60
+    while runtime.available_resources().get("GPU", 0) < 1:
+        assert time.monotonic() < deadline, "the replica kept the GPU"
+        time.sleep(0.2)
+
+
+@ray_tpu_torch.remote(num_cpus=1)
+def _llm_deployment_in_a_cpu_worker():
+    from ray_tpu_torch.serve.llm import LLMDeployment
+    LLMDeployment(model="gpt")
+
+
+def test_cpu_worker_replica_refuses_cuda(runtime):
+    """A replica that holds no GPU sees no card: `device="cuda"` raises
+    in `__init__` (in a CPU worker: "no CUDA device") and the deployment
+    answers nothing; it never serves on the CPU."""
+    from ray_tpu_torch import serve
+
+    with pytest.raises(Exception, match="no CUDA device"):
+        runtime.get(_llm_deployment_in_a_cpu_worker.remote(), timeout=300)
+    handle = serve.run(serve.llm.build_app(
+        name="llm-nogpu", model="gpt", ray_actor_options={"num_cpus": 1}))
+    try:
+        with pytest.raises(Exception):
+            handle.generate_once.remote([1, 2], 2).result(timeout=300)
+    finally:
+        serve.shutdown()

@@ -85,3 +85,29 @@ def test_no_forbidden_import_statements(path):
             names.append(node.module or "")
     bad = [n for n in names if _forbidden(n)]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_serve_leaves_torch_unimported():
+    """`import ray_tpu_torch.serve`, every Serve module, `serve.llm`'s
+    deployment and the KV cache module (`reclaim_arena`) import no torch:
+    the controller (which unpickles `LLMDeployment` and reclaims arenas),
+    the proxies and plain replicas run without it; an LLM replica pays
+    for it when it builds its engine."""
+    serve = ["ray_tpu_torch.serve"] + [
+        f"ray_tpu_torch.serve.{name}" for name in (
+            "asgi", "batching", "controller", "deployment", "dispatch",
+            "grpc_proxy", "handle", "multiplex", "proxy", "replica",
+            "schema", "llm", "llm.deployment", "llm.kv_cache")]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {serve!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "torch" not in loaded
+    assert "ray_tpu_torch.serve.llm.engine" not in loaded
+    assert not [m for m in loaded if _forbidden(m)]
+    assert set(serve) <= set(loaded)

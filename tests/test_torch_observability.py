@@ -4,8 +4,8 @@ The JAX engine and the port engine serve the same prompts on the same
 weights (the tiny f32 GPT and Llama, `models.convert`), with the same
 `EngineConfig` (prefix cache on; speculation off and K=2). Checked:
 the `/metrics` text (`_metrics_text`) line for line but for the timing
-lines, the `metrics()` keys (the JAX `kv_arena_id` aside: the port has
-no shared-memory arena yet) and counters, the request recorder's engine
+lines, the `metrics()` keys (`kv_arena_id` included: None on both sides
+without a store) and counters, the request recorder's engine
 records and their phase split, the timed-out and shut-down records, the
 `llm.prefill` / `llm.prefill_chunk` spans, the step profiler's MFU, the
 health watchdog's deadman rule and the pump thread's probe. Everything
@@ -121,10 +121,11 @@ def test_metrics_text_matches_jax(served):
 
 def test_metrics_keys_and_counters_match_jax(served):
     """Same keys (the repairs: `requests_failed` in the counters, the
-    per-bucket table named `compiled_step_calls`) and the same values,
-    timings and the JAX shared-memory arena id aside."""
+    per-bucket table named `compiled_step_calls`, `kv_arena_id`) and the
+    same values, timings aside."""
     want, got = (side["metrics"] for side in served)
-    assert set(got) == set(want) - {"kv_arena_id"}
+    assert set(got) == set(want)
+    assert got["kv_arena_id"] is want["kv_arena_id"] is None
     assert got["requests_failed"] == want["requests_failed"] == 0
     assert got["compiled_step_calls"] == want["compiled_step_calls"]
     for key in set(got) - {"prefill_ms", "decode_ms"}:

@@ -6,7 +6,10 @@ through CUDA_VISIBLE_DEVICES, every other worker sees "" and never
 touches the card. A live GPU actor holds its GPU until it is killed.
 The same scenario on the JAX package (`num_tpus`, TPU_VISIBLE_CHIPS)
 gives the same grant pattern. Also here: detection and its environment
-override.
+override, and three repairs around `kill` held against the JAX package
+(a killed actor inside a method ends at once and frees its GPU; a
+second kill of a dead actor returns at once; a killed named actor's
+name is free).
 """
 
 import json
@@ -77,6 +80,156 @@ def test_live_gpu_actors_hold_the_gpus_until_killed(cluster):
     got, _ = ray_tpu_torch.get(waiting, timeout=120)
     assert got == devices[0]
     ray_tpu_torch.kill(holders[1])
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+class BusyGpuHolder:
+    def pid(self):
+        return os.getpid()
+
+    def busy(self, seconds):
+        time.sleep(seconds)
+        return "done"
+
+
+@ray_tpu_torch.remote
+class SlowCleanup:
+    """An exit hook that outlasts the kill grace: it writes `marker`
+    2 x KILL_GRACE_S after the worker starts its orderly exit."""
+
+    def __init__(self, marker):
+        import atexit
+
+        from ray_tpu_torch._private.core_worker import KILL_GRACE_S
+
+        def cleanup():
+            time.sleep(2 * KILL_GRACE_S)
+            with open(marker, "w") as f:
+                f.write("clean")
+
+        atexit.register(cleanup)
+
+    def pid(self):
+        return os.getpid()
+
+
+def test_kill_ends_a_running_method_and_frees_its_gpu(cluster, tmp_path):
+    """A repair of the port (the JAX worker queues its exit behind the
+    running method, see the next test): `kill` ends a GPU actor that is
+    inside a long method within seconds, the method fails with
+    ActorDiedError, the GPU is free again, and a second kill returns at
+    once. An idle actor's orderly exit is not cut: its exit hook, longer
+    than the grace, runs to its end."""
+    marker = tmp_path / "cleanup"
+    idle = SlowCleanup.remote(str(marker))
+    idle_pid = ray_tpu_torch.get(idle.pid.remote(), timeout=120)
+    holder = BusyGpuHolder.remote()
+    pid = ray_tpu_torch.get(holder.pid.remote(), timeout=120)
+    ref = holder.busy.remote(120)
+    time.sleep(0.5)
+    ray_tpu_torch.kill(holder)
+    deadline = time.monotonic() + 15
+    while _alive(pid) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert not _alive(pid), "the killed actor's process is still running"
+    with pytest.raises(ray_tpu_torch.ActorDiedError):
+        ray_tpu_torch.get(ref, timeout=60)
+    while ray_tpu_torch.available_resources().get("GPU", 0) < 2:
+        assert time.monotonic() < deadline + 30, "the GPU was not freed"
+        time.sleep(0.1)
+    t0 = time.monotonic()
+    ray_tpu_torch.kill(holder)
+    assert time.monotonic() - t0 < 2
+    ray_tpu_torch.kill(idle)
+    deadline = time.monotonic() + 30
+    while _alive(idle_pid) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert not _alive(idle_pid), "the killed idle actor never exited"
+    assert marker.read_text() == "clean"
+
+
+# One script, either package: kill an actor inside a 60 s method and
+# report whether its process still runs 10 s later; kill an idle named
+# actor twice, time the second kill and look its name up.
+KILL_SCRIPT = r'''
+import json, os, sys, time, importlib
+pkg = sys.argv[1]
+rt = importlib.import_module(pkg)
+rt.init(num_cpus=2, object_store_memory=64 * 1024 * 1024,
+        **({"num_tpus": 0} if pkg == "ray_tpu" else {"num_gpus": 0}))
+
+def alive(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+@rt.remote
+class Busy:
+    def pid(self):
+        return os.getpid()
+
+    def busy(self, seconds):
+        time.sleep(seconds)
+
+try:
+    actor, idle = Busy.remote(), Busy.options(name="idle").remote()
+    pid = rt.get(actor.pid.remote(), timeout=120)
+    rt.get(idle.pid.remote(), timeout=120)
+    actor.busy.remote(60)
+    time.sleep(0.5)
+    rt.kill(actor)
+    rt.kill(idle)
+    time.sleep(10)
+    t0 = time.monotonic()
+    rt.kill(idle)
+    second_kill_s = time.monotonic() - t0
+    try:
+        rt.get_actor("idle")
+        dead_name_found = True
+    except ValueError:
+        dead_name_found = False
+    print(json.dumps({"alive_10s_after_kill": alive(pid),
+                      "second_kill_under_2s": second_kill_s < 2,
+                      "dead_name_found": dead_name_found}))
+finally:
+    rt.shutdown()
+'''
+
+
+def test_kill_against_the_jax_package():
+    """The differences the three repairs make: the JAX worker is still
+    running 10 s after `kill` (its exit waits for the 60 s method), the
+    port's is gone; a second kill of a dead actor takes the JAX GCS a
+    10 s connect to the dead worker, the port's returns at once; and
+    `get_actor` finds a killed named actor in the JAX package, not in
+    the port (its name is free again)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT))
+    procs = {pkg: subprocess.Popen(
+        [sys.executable, "-c", KILL_SCRIPT, pkg], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pkg in ("ray_tpu", "ray_tpu_torch")}
+    results = {}
+    for pkg, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, f"{pkg}: {err[-3000:]}"
+        results[pkg] = json.loads(out.strip().splitlines()[-1])
+    assert results == {
+        "ray_tpu": {"alive_10s_after_kill": True,
+                    "second_kill_under_2s": False,
+                    "dead_name_found": True},
+        "ray_tpu_torch": {"alive_10s_after_kill": False,
+                          "second_kill_under_2s": True,
+                          "dead_name_found": False}}
 
 
 def test_detection_honours_the_environment(monkeypatch):

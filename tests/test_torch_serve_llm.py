@@ -230,6 +230,73 @@ def test_assert_quiesced_with_cached_prefixes():
     assert kv.close() == 0
 
 
+# Another process attached to the node's store: it sees the arena by
+# id, reads the value the creator wrote through its tensor view (so the
+# arena IS the store's bytes), reclaims it, and finds it gone.
+_ARENA_PEER = r'''
+import sys
+import torch
+from ray_tpu_torch._private.ids import ObjectID
+from ray_tpu_torch._private.object_store import ObjectStore
+from ray_tpu_torch.serve.llm import reclaim_arena
+store = ObjectStore.attach(sys.argv[1])
+oid = ObjectID.from_hex(sys.argv[2])
+seen = store.contains(oid)
+buf = store.get_buffer(oid, timeout=0)
+first = float(torch.frombuffer(buf, dtype=torch.bfloat16)[0])
+del buf
+store.release(oid)
+reclaimed = reclaim_arena(sys.argv[2], store=store)
+print(seen, first, reclaimed, store.contains(oid))
+store.close()
+'''
+
+
+def test_shm_arena_create_and_reclaim():
+    """The port's counterpart of the JAX test of the same name: with
+    `store=` on the CPU the arena is one sealed object of the node's
+    shared-memory store (bf16 here), and `reclaim_arena` force-deletes
+    it by id from another process attached to the store despite the
+    creator's live reference."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from ray_tpu_torch._private.ids import ObjectID
+    from ray_tpu_torch._private.object_store import ObjectStore
+    from ray_tpu_torch.serve.llm import reclaim_arena
+
+    name = f"/ray_tpu_torch_test_llmkv_{os.getpid()}"
+    store = ObjectStore.create(name, capacity=16 * 1024 * 1024,
+                               table_size=256)
+    try:
+        kv = _cache(store=store, dtype=torch.bfloat16)
+        hex_id = kv.arena_id_hex
+        assert hex_id is not None
+        assert store.contains(ObjectID.from_hex(hex_id))
+        assert kv.arena_nbytes == 2 * 8 * 2 * 4 * 2 * 4 * 2
+        kv.k_pages[0, 0, 0, 0, 0] = 7.0
+        out = subprocess.run(
+            [sys.executable, "-c", _ARENA_PEER, name, hex_id],
+            cwd=Path(__file__).resolve().parent.parent,
+            capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert out.stdout.split() == ["True", "7.0", "True", "False"]
+        assert not store.contains(ObjectID.from_hex(hex_id))
+        assert not reclaim_arena(hex_id, store=store)  # already gone
+        assert kv.close() == 0
+    finally:
+        store.destroy()
+
+
+def test_arena_without_store_has_no_id():
+    kv = _cache()
+    assert kv.arena_id_hex is None
+    assert kv.arena_nbytes == 2 * 8 * 2 * 4 * 2 * 4 * 4
+    assert kv.close() == 0
+
+
 # ---------------------------------------------------------------------------
 # engine: the port against the JAX engine, same weights (f32, CPU)
 # ---------------------------------------------------------------------------
@@ -327,6 +394,47 @@ def test_tokens_identical_to_jax_engine(fam):
         eng.quiesce()
     finally:
         assert eng.shutdown() == 0  # zero leaked pages
+
+
+def test_request_sink_matches_jax_engine(fam):
+    """`Request.sink` (the native-ring intake's hook) receives what the
+    JAX engine's sink receives, call for call: every token, then the
+    terminal "done"; and "error" for a request shed at its deadline."""
+    from ray_tpu.serve.llm import EngineConfig as JaxEngineConfig
+    from ray_tpu.serve.llm import LLMEngine as JaxLLMEngine
+
+    def events(eng):
+        seen = {}
+        reqs = [eng.submit(p, n) for p, n in zip(PROMPTS, NEW)]
+        late = eng.submit([3, 4], 4, timeout_s=0.001)
+        for i, req in enumerate(reqs + [late]):
+            # as _admit_frame does: the sink is set after submit()
+            req.sink = lambda *ev, i=i: seen.setdefault(i, []).append(ev)
+        time.sleep(0.01)  # past the late request's deadline
+        eng.run_until_idle(timeout=120)
+        assert [r.out_q.qsize() for r in reqs + [late]] == [0] * 5
+        return [seen[i] for i in range(len(reqs) + 1)]
+
+    jeng = JaxLLMEngine(model=fam.model, params=fam.variables,
+                        engine_config=JaxEngineConfig(
+                            batch_buckets=(1, 2, 4),
+                            prefill_buckets=(8, 16)))
+    try:
+        want = events(jeng)
+        jeng.quiesce()
+    finally:
+        assert jeng.shutdown() == 0
+    assert jeng._intake is None
+    eng = fam.engine()
+    try:
+        assert eng._intake is None
+        got = events(eng)
+        eng.quiesce()
+    finally:
+        assert eng.shutdown() == 0
+    assert got == want
+    assert [ev[0] for ev in got[0]] == ["token"] * NEW[0] + ["done"]
+    assert got[-1] == [("error", "deadline passed before admission")]
 
 
 def test_continuous_batching_matches_one_at_a_time(fam):
