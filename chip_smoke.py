@@ -131,7 +131,29 @@ a non-zero exit) on any failed check:
    token after the kill. Each shutdown leaves no process, no
    /dev/shm/ray_tpu_torch_* segment (store, ring, FIFOs) and the card's
    memory back;
-10. the `kernels` JSON line (every ported kernel with its numbers), the
+10. train_dist: the port's distributed train plane. On a node of the
+   port's runtime (2 CPUs, the card its one `GPU`),
+   `TorchTrainer(scaling_config=ScalingConfig(num_workers=1,
+   use_gpu=True), backend_config=TorchConfig(distributed="on",
+   platform="cuda"))` under its one-trial Tune run (the controller loop
+   in a trial actor that imports no torch) trains phase 5's GPT-2 125M
+   (same seed, weights and batch) in a GPU worker joined in an NCCL
+   process group of one rank: each step's gradients and loss averaged by
+   one all-reduce of a flat bucket inside the step, through
+   `TrainStepRunner` at K=1 for 6 steps (the carry's array checkpoint
+   goes with step 4's report, a gang-durable commit), then at K=4 for 2
+   calls. The rank dies (`os._exit`) after step 6 on its first attempt:
+   the controller catches the death, starts a new GPU worker, which
+   restores the step-4 checkpoint into its live carry and finishes the
+   14 steps. Checks: every reported loss within 1e-3 relative of phase
+   5's K=1 loss at the same step; the restored carry's leaf checksums
+   equal the checkpoint's; `resumed_from` 4; the kernels launched
+   n_layer times per step in each attempt (the backward twice that);
+   NCCL; no process and no /dev/shm segment left. Prints the node's and
+   the worker's start, `fit()` to the first report, step ms at K=1 and
+   K=4 beside phase 5's, the checkpoint's persist ms, the kill to the
+   replacement's first report, the restore, launches and peak memory;
+11. the `kernels` JSON line (every ported kernel with its numbers), the
    card line, and last the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -2401,6 +2423,342 @@ def phase_serve(gpt, engine_cfg=None, buckets=GPT_BUCKETS,
                 launches=sum(r["flash_launches"] for r in rows.values()))
 
 
+TRAIN_DIST_DIR = Path(__file__).resolve().parent / "smoke_train_dist"
+TRAIN_DIST_K1_STEPS = 6    # steps at K=1; the first attempt dies after them
+TRAIN_DIST_CKPT_STEP = 4   # the gang checkpoint goes with this step's report
+TRAIN_DIST_K4_CALLS = 2    # then K=4 calls: 14 steps in all
+TRAIN_DIST_LOSS_RTOL = 1e-3  # each loss against `train`'s K=1 loss
+
+
+def _process_start_wall():
+    """This process's start on the wall clock (Linux: its start in clock
+    ticks after boot, /proc/self/stat field 22, plus the boot time)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(line.split()[1]) for line in f
+                     if line.startswith("btime "))
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _dist_loop(config):
+    """`train_dist`'s training loop, in the `TorchTrainer`'s GPU worker.
+    It imports this script as a module there (the checkout's root is on
+    every worker's path): sent by value, it holds no reference to torch,
+    so the Tune trial actor and the train controller that unpickle the
+    trainer run without torch."""
+    import chip_smoke
+
+    chip_smoke._dist_train_worker(config)
+
+
+def _dist_train_worker(config):
+    """GPT-2 125M as the `train` phase wires it (same seed, weights and
+    batch), each step's gradients and loss averaged over the process
+    group by one all-reduce of a flat bucket inside the step, through
+    `TrainStepRunner`: K=1 up to step 6 (the gang checkpoint of the carry
+    with step 4's report), then K=4 twice. The first attempt (no restore
+    checkpoint) dies after step 6's report; the replacement restores the
+    step-4 checkpoint into its live carry, checks each leaf's checksum
+    against the checkpoint's, and trains on from step 5."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train._internal import session as session_mod
+
+    t_start = time.time()
+    proc_start = _process_start_wall()
+    device = config["device"]
+    assert dist.is_initialized(), "train_dist: the worker has no group"
+    backend, world = dist.get_backend(), dist.get_world_size()
+    if device == "cuda":
+        # the worker's card is cuda:0 (its CUDA_VISIBLE_DEVICES grant)
+        assert backend == "nccl" and torch.cuda.current_device() == 0, \
+            (backend, torch.cuda.current_device())
+    # this attempt's main path: counts at 0 here, read at each report
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.time()
+    torch.zeros(1, device=device).sum().item()  # the process's first op
+    first_op_s = time.time() - t0
+    cfg = getattr(gpt_mod.GPTConfig, config["model"])(
+        remat=False, max_seq_len=config["seq"])
+    batch, seq = config["batch"], config["seq"]
+    model, inputs, targets = _train_setup(
+        "gpt", cfg, config["seed"], batch, seq,
+        partial(flash_attention, causal=True), device)
+    model_s = time.time() - t0  # the weights drawn, the model, the batch
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                            betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4,
+                            capturable=torch.device(device).type == "cuda")
+    carry = _adamw_carry(model, opt)
+    params = list(carry["params"].values())
+    numels = [p.numel() for p in params]
+    setup_s = time.time() - t0  # the model, AdamW and the carry
+
+    def train_step(carry, data):
+        loss = _loss(model, data["x"], data["y"])
+        loss.backward()
+        # the gang's mean gradient and loss: one flat bucket, one
+        # all-reduce, captured with the rest of the step
+        flat = torch.cat([p.grad.reshape(-1) for p in params]
+                         + [loss.detach().reshape(1).float()])
+        dist.all_reduce(flat)
+        flat.div_(world)
+        for p, g in zip(params, flat[:-1].split(numels)):
+            p.grad = g.view_as(p)
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        # a copy: a view would keep the whole bucket alive as the step's
+        # output (K times over in a K-step graph)
+        return carry, flat[-1].clone()
+
+    start, restore_s, sums_equal, checksum_s = 0, None, None, None
+    resume = train.get_checkpoint()
+    if resume is not None:
+        t0 = time.perf_counter()
+        restored = array_checkpoint.restore_sharded(resume, carry)
+        with torch.no_grad():
+            for got, live in zip(_tensor_leaves(restored),
+                                 _tensor_leaves(carry)):
+                live.copy_(got)
+        del restored
+        if device == "cuda":
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        with open(os.path.join(resume.path, "checksums.json")) as f:
+            want_sums = json.load(f)
+        t0 = time.perf_counter()
+        sums = [_checksum(x) for x in _tensor_leaves(carry)]
+        checksum_s = time.perf_counter() - t0
+        sums_equal = sums == want_sums
+        assert sums_equal, "train_dist: the restored carry's checksums " \
+            "differ from the checkpoint's"
+        start = int(next(iter(carry["step"].values())))
+    data = {"x": inputs, "y": targets}
+    tokens = batch * seq
+    flops = gpt_mod.flops_per_token(cfg, seq) * tokens
+    step = start
+
+    def report(k, losses, ms, miss, runner, checkpoint=None, **extra):
+        rec = runner.step_stats(1)[0]
+        train.report(dict(
+            step=step, k=k, losses=losses, loss=losses[-1], step_ms=ms,
+            miss=miss, resumed_from=start, restore_s=restore_s,
+            checksums_equal=sums_equal, backend=backend, world=world,
+            fwd_launches=flash_attention.launches,
+            bwd_launches=flash_attention_bwd.launches,
+            checkpoint_ms=rec.get("checkpoint_ms", 0.0),
+            cache=runner.cache_stats(),
+            peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                      if device == "cuda" else 0.0),
+            pid=os.getpid(), proc_start=proc_start, t_start=t_start,
+            first_op_s=first_op_s, model_s=model_s, setup_s=setup_s,
+            checksum_s=checksum_s,
+            t_wall=time.time(),
+            **extra), checkpoint=checkpoint)
+
+    for k, until in ((1, TRAIN_DIST_K1_STEPS),
+                     (4, TRAIN_DIST_K1_STEPS + 4 * TRAIN_DIST_K4_CALLS)):
+        runner = TrainStepRunner(
+            train_step, steps_per_call=k, tokens_per_step=tokens,
+            flops_per_step=flops, peak_flops=PEAK_BF16_FLOPS, device=device)
+        batches = data if k == 1 else stack_batches([data] * k)
+        miss = True
+        while step < until:
+            t0 = time.perf_counter()
+            carry, loss = runner.run(carry, batches)
+            losses = [float(x) for x in loss.reshape(-1).tolist()]
+            ms = (time.perf_counter() - t0) * 1e3 / k
+            step += k
+            ckpt, extra = None, {}
+            if step == TRAIN_DIST_CKPT_STEP:
+                t0 = time.perf_counter()
+                ckpt = array_checkpoint.save_to_checkpoint(carry)
+                extra["save_s"] = time.perf_counter() - t0
+                with open(os.path.join(ckpt.path, "checksums.json"),
+                          "w") as f:
+                    json.dump([_checksum(x) for x in _tensor_leaves(carry)],
+                              f)
+            report(k, losses, ms, miss, runner, checkpoint=ckpt, **extra)
+            miss = False
+            if step == TRAIN_DIST_K1_STEPS and resume is None:
+                # the rank dies on its first attempt, after its step-4
+                # report returned (the gang committed that checkpoint)
+                # and once the controller has taken step 6's report
+                sess = session_mod.get_session()
+                while not sess.result_queue.empty():
+                    time.sleep(0.005)
+                with open(os.path.join(train.get_context().get_trial_dir(),
+                                       "killed_at"), "w") as f:
+                    f.write(repr(time.time()))
+                os._exit(1)
+        global_cache().evict(runner._compiled)
+        del runner, batches
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+
+def phase_train_dist(want_losses, ref_ms, model="gpt2_125m", batch=16,
+                     seq=1024, seed=3, device="cuda"):
+    """The distributed train plane on the card (module docstring, phase
+    10). `want_losses` is the `train` phase's K=1 loss trajectory (step i
+    at index i - 1), `ref_ms` its graphed step ms at K=1 and K=4."""
+    from ray_tpu_torch import train as train_mod
+    from ray_tpu_torch.air import (CheckpointConfig, FailureConfig,
+                                   RunConfig, ScalingConfig)
+
+    card = card_line() if device == "cuda" else "cpu"
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    assert not _port_processes(), _port_processes()
+    shutil.rmtree(TRAIN_DIST_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=2, object_store_memory=256 << 20,
+                       **({} if device == "cuda" else {"num_gpus": 1}))
+    init_s = time.perf_counter() - t0
+    try:
+        assert ray_tpu_torch.cluster_resources().get("GPU", 0) == 1
+        trainer = train_mod.TorchTrainer(
+            _dist_loop,
+            train_loop_config=dict(device=device, model=model, batch=batch,
+                                   seq=seq, seed=seed),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            backend_config=train_mod.TorchConfig(
+                distributed="on",
+                platform="cuda" if device == "cuda" else "cpu"),
+            run_config=RunConfig(
+                name="train_dist", storage_path=str(TRAIN_DIST_DIR),
+                checkpoint_config=CheckpointConfig(num_to_keep=2),
+                failure_config=FailureConfig(max_failures=1)))
+        fit_wall = time.time()
+        result = trainer.fit()
+        fit_s = time.time() - fit_wall
+        (killed,) = glob.glob(str(TRAIN_DIST_DIR / "train_dist" / "*" /
+                                  "killed_at"))
+        with open(killed) as f:
+            killed_at = float(f.read())
+    finally:
+        ray_tpu_torch.shutdown()
+    _assert_clean()
+    shutil.rmtree(TRAIN_DIST_DIR, ignore_errors=True)
+
+    hist = [m for m in result.metrics_history if "step" in m]
+    first = [m for m in hist if m["resumed_from"] == 0]
+    second = [m for m in hist if m["resumed_from"] != 0]
+    k1_end = TRAIN_DIST_K1_STEPS
+    assert [m["step"] for m in first] == list(range(1, k1_end + 1)), hist
+    assert [m["step"] for m in second] == [
+        *range(TRAIN_DIST_CKPT_STEP + 1, k1_end + 1),
+        *range(k1_end + 4, k1_end + 4 * TRAIN_DIST_K4_CALLS + 1, 4)], hist
+    assert result.metrics["resumed_from"] == TRAIN_DIST_CKPT_STEP
+    assert result.metrics["step"] == k1_end + 4 * TRAIN_DIST_K4_CALLS
+    assert first[-1]["pid"] != second[0]["pid"]
+    assert all(m["checksums_equal"] for m in second), second
+    want_backend = "nccl" if device == "cuda" else "gloo"
+    assert {(m["backend"], m["world"]) for m in hist} == {(want_backend, 1)}
+    # every loss against `train`'s K=1 loss at the same step
+    worst = 0.0
+    for m in hist:
+        for j, loss in enumerate(m["losses"]):
+            at = m["step"] - len(m["losses"]) + j  # the step's index
+            assert np.isfinite(loss), m
+            worst = max(worst, abs(loss - want_losses[at])
+                        / abs(want_losses[at]))
+    assert worst <= TRAIN_DIST_LOSS_RTOL, (worst, hist, want_losses)
+    # each attempt's steps ran as graphs: one capture per K it ran, then
+    # only replays (the process's cache: the K=1 and K=4 runners')
+    for run in (first, second):
+        cache = run[-1]["cache"]
+        misses = len({m["k"] for m in run})
+        assert cache["misses"] == misses and cache["retraces"] == 0 and \
+            cache["hits"] == len(run) - misses, (cache, run)
+    # each attempt's kernels: n_layer forwards and twice that backward
+    # kernels per step it ran
+    n_layer = getattr(gpt_mod.GPTConfig, model)().n_layer
+    launches = {}
+    for key in ("fwd_launches", "bwd_launches"):
+        per = 1 if key == "fwd_launches" else BWD_KERNELS_PER_CALL
+        for run in (first, second):
+            steps = run[-1]["step"] - run[0]["step"] + len(run[0]["losses"])
+            want = n_layer * steps * per if device == "cuda" else 0
+            assert run[-1][key] == want, (key, run[-1][key], want)
+        launches[key] = first[-1][key] + second[-1][key]
+    k1_ms = [m["step_ms"] for m in hist if m["k"] == 1 and not m["miss"]]
+    k4_ms = [m["step_ms"] for m in hist if m["k"] == 4 and not m["miss"]]
+    row = dict(
+        init_s=init_s, fit_s=fit_s,
+        fit_to_worker_s=first[0]["t_start"] - fit_wall,
+        fit_to_first_report_s=first[0]["t_wall"] - fit_wall,
+        fit_to_worker_spawn_s=first[0]["proc_start"] - fit_wall,
+        kill_to_replacement_report_s=second[0]["t_wall"] - killed_at,
+        kill_to_replacement_spawn_s=second[0]["proc_start"] - killed_at,
+        kill_to_replacement_start_s=second[0]["t_start"] - killed_at,
+        spawn_to_loop_s=[m[0]["t_start"] - m[0]["proc_start"]
+                         for m in (first, second)],
+        first_op_s=[m[0]["first_op_s"] for m in (first, second)],
+        model_s=[m[0]["model_s"] for m in (first, second)],
+        setup_s=[m[0]["setup_s"] for m in (first, second)],
+        first_call_s=[m[0]["step_ms"] * m[0]["k"] / 1e3
+                      for m in (first, second)],
+        checksum_s=second[0]["checksum_s"],
+        peak_gib_by_run={f"{a}:k{m['k']}": m["peak_gib"]
+                         for a, run in (("first", first), ("second", second))
+                         for m in run},
+        replacement_start_to_report_s=second[0]["t_wall"]
+        - second[0]["t_start"],
+        restore_s=second[0]["restore_s"],
+        save_s=first[TRAIN_DIST_CKPT_STEP - 1]["save_s"],
+        checkpoint_persist_ms=first[TRAIN_DIST_CKPT_STEP]["checkpoint_ms"],
+        k1_step_ms=statistics.median(k1_ms), k1_step_ms_all=k1_ms,
+        k4_step_ms=statistics.median(k4_ms), k4_step_ms_all=k4_ms,
+        ref_ms=ref_ms, worst_loss_rel=worst,
+        peak_gib=max(m["peak_gib"] for m in hist),
+        fwd_launches=launches["fwd_launches"],
+        bwd_launches=launches["bwd_launches"],
+        steps=[m["step"] for m in hist], backend=want_backend)
+    print(f"train_dist: node up {init_s:.2f} s; fit() to the GPU worker's "
+          f"process {row['fit_to_worker_spawn_s']:.2f} s (trial actor, "
+          f"controller, placement group), to its loop "
+          f"{row['fit_to_worker_s']:.2f} s (the process's imports, CUDA "
+          f"context, {want_backend} group: {row['spawn_to_loop_s'][0]:.2f} "
+          f"s), to its first report {row['fit_to_first_report_s']:.2f} s "
+          f"(the process's first CUDA op {row['first_op_s'][0]:.2f} s, "
+          f"model and carry {row['setup_s'][0]:.2f} s (of it the model "
+          f"{row['model_s'][0]:.2f} s), the first call "
+          f"{row['first_call_s'][0]:.2f} s); fit() {fit_s:.2f} s in all "
+          f"(card: {card})")
+    print(f"train_dist: step ms K=1 {row['k1_step_ms']:.2f} (runs "
+          f"{[round(x, 2) for x in k1_ms]}) vs `train` K=1 "
+          f"{ref_ms[0]:.2f}; K=4 {row['k4_step_ms']:.2f} vs `train` K=4 "
+          f"{ref_ms[1]:.2f}; the all-reduce inside each captured step")
+    print(f"train_dist: step-4 checkpoint staged in {row['save_s']:.2f} s, "
+          f"persisted in {row['checkpoint_persist_ms']:.0f} ms (step "
+          f"profiler's checkpoint_ms); rank killed after step "
+          f"{first[-1]['step']}: the replacement's first report "
+          f"{row['kill_to_replacement_report_s']:.2f} s after the kill (its "
+          f"process {row['kill_to_replacement_spawn_s']:.2f} s after, its "
+          f"loop {row['kill_to_replacement_start_s']:.2f} s after; loop to "
+          f"report {row['replacement_start_to_report_s']:.2f} s: first CUDA "
+          f"op {row['first_op_s'][1]:.2f} s, model and carry "
+          f"{row['setup_s'][1]:.2f} s (model {row['model_s'][1]:.2f} s), "
+          f"restore into the live carry "
+          f"{row['restore_s']:.2f} s, checksums {row['checksum_s']:.2f} s, "
+          f"the first call {row['first_call_s'][1]:.2f} s), every leaf's "
+          f"checksum equal to the checkpoint's; resumed_from "
+          f"{result.metrics['resumed_from']}, step {result.metrics['step']}")
+    print(f"train_dist: steps {row['steps']}; worst loss rel difference "
+          f"from `train` K=1 {worst:.2e} (tol {TRAIN_DIST_LOSS_RTOL}); "
+          f"launches fwd {row['fwd_launches']} bwd {row['bwd_launches']}; "
+          f"peak card memory in the worker {row['peak_gib']:.2f} GiB (by "
+          f"report {row['peak_gib_by_run']})")
+    return row
+
+
 def _numbers(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}
@@ -2426,7 +2784,7 @@ BWD_DESIGN = (
 
 
 def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
-                 spec, runtime, serve_row, ptxas):
+                 spec, runtime, serve_row, train_dist, ptxas):
     """The `kernels` entries: every ported kernel with its numbers. The
     forward at the serving path's largest prefill shape (with the GPT-2
     run's launches per prefill bucket at that bucket's time), the
@@ -2436,7 +2794,8 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
     (backward); `launches_*` the other main paths' (`engine_spec`: both
     spec runs, and of them the draft prefills; `runtime`: the GPU
     worker's and the GPU actor's engine, as they counted them; `serve`:
-    the GPU replica's, on both paths)."""
+    the GPU replica's, on both paths; `train_dist`: the `TorchTrainer`'s
+    GPU worker's, both attempts)."""
     def at(table, shape):
         return next(r for r in table if r["shape"] == shape)
 
@@ -2481,6 +2840,7 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
             r["draft_prefill_launches"] for r in spec),
         "launches_runtime": runtime["launches"],
         "launches_serve": serve_row["launches"],
+        "launches_train_dist": train_dist["fwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **_numbers(main_row),
         "at": MAIN_SHAPE,
@@ -2503,6 +2863,7 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_train_llama": train_llama["bwd_launches"],
         "launches_train_long": train_long["bwd_launches"],
         **graphed_launches("bwd_launches"),
+        "launches_train_dist": train_dist["bwd_launches"],
         "kernels_per_call": BWD_KERNELS_PER_CALL,
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in bwd_rows),
@@ -2559,13 +2920,20 @@ def main() -> int:
     serve_row = phase_serve(gpt)
     for row in (gpt, llama):  # the later phases' references, not results
         del row["tokens"], row["gaps"]
+    # the distributed train plane: the `train` phase's model, weights and
+    # batch in a TorchTrainer's GPU worker, a rank killed and replaced
+    k1, k4 = train["graphed"]["k1"], train["graphed"]["k4"]
+    train_dist = phase_train_dist(k1["losses"],
+                                  (k1["step_ms"], k4["step_ms"]))
 
     kernels = kernels_line(rows, bwd_rows, train, train_llama, train_long,
-                           gpt, llama, spec, runtime, serve_row, ptxas)
+                           gpt, llama, spec, runtime, serve_row, train_dist,
+                           ptxas)
     print(json.dumps({"build_s": build_s, "train": train,
                       "train_llama": train_llama, "train_long": train_long,
                       "engines": [gpt, llama], "engine_spec": spec,
-                      "runtime": runtime, "serve": serve_row}))
+                      "runtime": runtime, "serve": serve_row,
+                      "train_dist": train_dist}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -2368,6 +2368,13 @@ class CoreWorker:
         if st.get("instance") and st["instance"][0] == addr:
             st["instance"] = None
         st["seq_instance"] = None
+        if isinstance(exc, (ConnectionLost, OSError)):
+            # the actor's process is gone (or going): until the GCS
+            # learns of it, a resolve still hands out this address, and a
+            # dial would retry against the refused port for a whole
+            # connect timeout (10 s) before failing the next call. The
+            # restarted instance, if any, listens elsewhere.
+            self._clients.mark_failed(addr)
         self._inflight_tasks.pop(spec.task_id, None)
         if spec.task_id in self._cancelled_tasks:
             # force-cancel took the worker down mid-call: report the
@@ -3129,12 +3136,12 @@ class CoreWorker:
     def _start_channel_graph(self, stages: list) -> str:
         """Compiled-DAG stage executor (the JAX package's per-actor loop
         over shared-memory channels, `ray_tpu/experimental/channel.py`).
-        Not ported yet: the channels come with `dag.py` in the
-        distributed train plane's slice (ROADMAP S4d)."""
+        Not ported yet: the channels come with `dag.py` in slice S4e
+        (ROADMAP Queue 1)."""
         raise NotImplementedError(
             "ray_tpu_torch: compiled-DAG channels (the JAX package's "
             "experimental/channel.py) are not ported yet; they come with "
-            "dag.py in slice S4d of the port (ROADMAP Queue 1)")
+            "dag.py in slice S4e of the port (ROADMAP Queue 1)")
 
     @staticmethod
     def _has_async_methods(cls) -> bool:

@@ -74,6 +74,8 @@ class GcsServer:
         self._scheduling_actors: set = set()
         self._pending_pgs: List[bytes] = []
         self._bg_tasks: list = []
+        # kills' exit notices in flight (held: the loop keeps tasks weakly)
+        self._exit_notices: set = set()
         self._retry_wakeup = asyncio.Event()
         # orders availability deltas against death publishes on the
         # "resources" gossip channel (see _publish_resource_delta)
@@ -935,18 +937,28 @@ class GcsServer:
         info["death_cause"] = reason
         info["max_restarts"] = 0
         if addr:
-            try:
-                worker = await self.clients.get(addr)
-                # worker_id lets a virtual-worker raylet (which serves
-                # many workers at one address) identify whose lease to
-                # release; real workers ignore the extra field
-                await worker.notify("exit_worker", {
-                    "reason": reason,
-                    "worker_id": info.get("worker_id"),
-                })
-            except (ConnectionLost, OSError, RpcError):
-                pass
+            # the exit notice goes out in the background: a worker whose
+            # process already died (before its raylet reported it) has a
+            # refused port, and the JAX GCS holds the kill for a whole
+            # connect timeout (10 s) dialling it
+            task = asyncio.ensure_future(self._notify_exit(
+                addr, reason, info.get("worker_id")))
+            self._exit_notices.add(task)
+            task.add_done_callback(self._exit_notices.discard)
         await self._publish_actor(actor_id)
+
+    async def _notify_exit(self, addr: str, reason: str, worker_id):
+        try:
+            worker = await self.clients.get(addr)
+            # worker_id lets a virtual-worker raylet (which serves many
+            # workers at one address) identify whose lease to release;
+            # real workers ignore the extra field
+            await worker.notify("exit_worker", {
+                "reason": reason,
+                "worker_id": worker_id,
+            })
+        except (ConnectionLost, OSError, RpcError):
+            pass
 
     async def rpc_kill_actor(self, req):
         await self._kill_actor(req["actor_id"], req.get("reason", "ray.kill"))

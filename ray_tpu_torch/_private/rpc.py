@@ -598,6 +598,12 @@ class ClientPool:
         self._connect_failed_at[address] = (
             time.monotonic(), self.DEAD_ADDR_TTL_S)
 
+    def mark_failed(self, address: str):
+        """Record a connection to `address` lost or refused: dials
+        within CONNECT_FAIL_TTL_S fail fast with ConnectionLost."""
+        self._connect_failed_at[address] = (
+            time.monotonic(), self.CONNECT_FAIL_TTL_S)
+
     def _check_poisoned(self, address: str):
         entry = self._connect_failed_at.get(address)
         if entry is None:

@@ -18,9 +18,14 @@ written by either package restores bit-identically in the other:
     tuples, in `jax.tree_util`'s flattening order; None is an empty
     subtree.
 
-Save writes this process's whole tensors as process 0 of 1 (one shard
-per leaf); sharded device tensors, and saves from several processes,
-come with the port's mesh (ROADMAP S4d/S5). Restore reads every index
+Save records the process as ``torch.distributed``'s rank of its world
+(0 of 1 when no process group is initialised). A data-parallel carry is
+replicated, so process 0 writes every tensor leaf whole (one shard) and
+every other process writes the leaf's record with no shards: the JAX
+package's ``replica_id == 0`` rule. Host values are saved by process 0
+only. `is_usable` then sees one index per process, as it does for the
+JAX package's multi-process checkpoints. Leaves sharded across ranks
+(DTensor) come with the port's device mesh (ROADMAP S5). Restore reads every index
 (the rank-0 directory and ``<dir>_shards/rank_*``) and assembles each
 leaf from whatever shard grid was saved, in numpy, so it also reads the
 multi-rank checkpoints the JAX package writes. It returns NEW tensors on
@@ -28,10 +33,15 @@ the device of each ``like`` leaf. To resume a runner whose step is a
 captured CUDA graph, ``copy_`` them into the live carry (as
 ``load_state_dict`` does): the graph holds the carry's addresses, and a
 carry in other storages would not be accepted by the next replay.
+
+Torch is imported where a function first touches a tensor: `is_usable`
+and `is_sharded_checkpoint`, which the train controller calls, run
+without it.
 """
 
 from __future__ import annotations
 
+import functools
 import glob as glob_mod
 import json
 import os
@@ -39,27 +49,27 @@ import pickle
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
-
-from ray_tpu_torch.parallel.compile_cache import _flatten, _unflatten
 
 _INDEX_FMT = "asv_index.{proc}.json"
 _DATA_FMT = "asv_data.{proc}.npz"
 _HOST_FMT = "asv_host.{proc}.pkl"
 _FORMAT_VERSION = 1
 
-# dtype names as JAX writes them -> torch dtypes
-_TORCH_DTYPES = {
-    "bool": torch.bool, "uint8": torch.uint8, "int8": torch.int8,
-    "int16": torch.int16, "int32": torch.int32, "int64": torch.int64,
-    "float16": torch.float16, "bfloat16": torch.bfloat16,
-    "float32": torch.float32, "float64": torch.float64,
-}
-_DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
+# dtype names as JAX writes them (torch's dtype names without "torch.")
+_DTYPES = ("bool", "uint8", "int8", "int16", "int32", "int64", "float16",
+           "bfloat16", "float32", "float64")
 
 
-def _dtype_name(dtype: torch.dtype) -> str:
-    name = _DTYPE_NAMES.get(dtype)
+@functools.lru_cache(maxsize=None)
+def _dtype_names() -> Dict[Any, str]:
+    """torch dtype -> its name as JAX writes it."""
+    import torch
+
+    return {getattr(torch, name): name for name in _DTYPES}
+
+
+def _dtype_name(dtype) -> str:
+    name = _dtype_names().get(dtype)
     if name is None:
         raise TypeError(f"array checkpoint: unsupported dtype {dtype}")
     return name
@@ -74,14 +84,18 @@ def _np_dtype(name: str) -> np.dtype:
     return np.dtype(name)
 
 
-def _to_torch(arr: np.ndarray, name: str, device) -> torch.Tensor:
+def _to_torch(arr: np.ndarray, name: str, device):
+    import torch
+
     t = torch.from_numpy(arr)
     if name == "bfloat16":
         t = t.view(torch.bfloat16)
     return t.to(device)
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def _to_numpy(t) -> np.ndarray:
+    import torch
+
     t = t.detach().to("cpu").contiguous()
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
@@ -140,15 +154,33 @@ def _norm_index(index: Sequence[slice], shape: Sequence[int]
     return out
 
 
+def _process() -> Tuple[int, int]:
+    """(rank, world size) of this process's `torch.distributed` group,
+    or (0, 1) when none is initialised."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def save_sharded(dir_path: str, tree: Any) -> None:
-    """Write this process's contribution of `tree` into `dir_path`: every
-    tensor leaf whole, as process 0 of 1."""
+    """Write THIS process's contribution of `tree` into `dir_path`.
+
+    Every process of the group calls this with the same (replicated)
+    tree. Process 0 writes every tensor leaf whole and the host values;
+    the others write their index with empty shard lists. A caller with
+    no process group saves everything as process 0 of 1."""
+    import torch
+
+    from ray_tpu_torch.parallel.compile_cache import _flatten
+
     os.makedirs(dir_path, exist_ok=True)
-    proc = 0
+    proc, nproc = _process()
     index: Dict[str, Any] = {
         "format": _FORMAT_VERSION,
         "process": proc,
-        "num_processes": 1,
+        "num_processes": nproc,
         "treedef": _treedef_str(_flatten(tree, [])),
         "leaves": [],
     }
@@ -156,31 +188,38 @@ def save_sharded(dir_path: str, tree: Any) -> None:
     host_values: Dict[int, Any] = {}
     for pos, (keystr, leaf) in enumerate(_leaves_with_paths(tree)):
         if isinstance(leaf, torch.Tensor):
-            key = f"l{pos}s0"
-            # as the JAX package writes it: a 0-d leaf's shard is [1]
-            data = np.ascontiguousarray(_to_numpy(leaf))
-            # flatten before the uint8 view: a 0-d array cannot change
-            # itemsize in place, and the shard record keeps the shape
-            blobs[key] = data.reshape(-1).view(np.uint8)
             shape = list(leaf.shape)
+            shards_meta: List[dict] = []
+            if proc == 0:
+                # the replicated leaf's one copy; the other processes
+                # contribute an empty shard list for it
+                key = f"l{pos}s0"
+                # as the JAX package writes it: a 0-d leaf's shard is [1]
+                data = np.ascontiguousarray(_to_numpy(leaf))
+                # flatten before the uint8 view: a 0-d array cannot change
+                # itemsize in place, and the shard record keeps the shape
+                blobs[key] = data.reshape(-1).view(np.uint8)
+                shards_meta.append({"key": key,
+                                    "index": _norm_index((), shape),
+                                    "shape": list(data.shape)})
             index["leaves"].append({
                 "pos": pos,
                 "path": keystr,
                 "kind": "array",
                 "shape": shape,
                 "dtype": _dtype_name(leaf.dtype),
-                "shards": [{"key": key,
-                            "index": _norm_index((), shape),
-                            "shape": list(data.shape)}],
+                "shards": shards_meta,
             })
         else:
             index["leaves"].append({"pos": pos, "path": keystr,
                                     "kind": "host"})
-            host_values[pos] = leaf
+            if proc == 0:
+                host_values[pos] = leaf
     np.savez(os.path.join(dir_path, _DATA_FMT.format(proc=proc)), **blobs)
-    with open(os.path.join(dir_path, _HOST_FMT.format(proc=proc)),
-              "wb") as f:
-        pickle.dump(host_values, f, protocol=pickle.HIGHEST_PROTOCOL)
+    if proc == 0:
+        with open(os.path.join(dir_path, _HOST_FMT.format(proc=proc)),
+                  "wb") as f:
+            pickle.dump(host_values, f, protocol=pickle.HIGHEST_PROTOCOL)
     # the index is the commit marker: write it last, atomically
     ipath = os.path.join(dir_path, _INDEX_FMT.format(proc=proc))
     tmp = f"{ipath}.tmp.{os.getpid()}"
@@ -326,6 +365,10 @@ def restore_sharded(source: Any, like: Any) -> Any:
     the saved host value, or for a saved array a numpy array (bfloat16
     as its int16 bits). Copy the result into a graphed runner's live
     carry with ``copy_`` (see the module docstring)."""
+    import torch
+
+    from ray_tpu_torch.parallel.compile_cache import _flatten, _unflatten
+
     src = _ShardSource(source)
     try:
         struct = _flatten(like, [])
@@ -355,7 +398,7 @@ def restore_sharded(source: Any, like: Any) -> Any:
                     f"`like` has {tuple(leaf.shape)}")
             tgt_dtype = getattr(leaf, "dtype", None)
             if isinstance(leaf, torch.Tensor):
-                tgt_dtype = _DTYPE_NAMES.get(leaf.dtype, leaf.dtype)
+                tgt_dtype = _dtype_names().get(leaf.dtype, leaf.dtype)
             if tgt_dtype is not None and str(tgt_dtype) != meta["dtype"]:
                 raise ValueError(
                     f"dtype mismatch for {keystr}: saved {meta['dtype']}, "
@@ -371,9 +414,11 @@ def restore_sharded(source: Any, like: Any) -> Any:
 
 
 def save_to_checkpoint(tree: Any, base_dir: Optional[str] = None):
-    """Stage this process's tensors into a throwaway dir and wrap it as
-    an `air.Checkpoint` (marked as a temporary source, for a session to
-    persist and reclaim)."""
+    """Stage this process's contribution into a throwaway dir and wrap it
+    as an `air.Checkpoint` ready for `train.report(checkpoint=...)` — the
+    train session then persists rank 0's dir as the canonical checkpoint
+    and every other rank's into the `_shards/rank_k` sibling, and
+    reclaims the staging dir."""
     import tempfile
 
     from ray_tpu_torch.air.checkpoint import Checkpoint

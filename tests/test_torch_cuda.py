@@ -8,7 +8,9 @@ step once, autograd inside a graph, donation, `fold_steps`,
 and the port's runtime with the card as its GPU (the forward kernel in
 a GPU worker on tensors from the store, a CUDA tensor put in a GPU
 worker fetched by the driver onto the card, a CPU worker that cannot
-see the card).
+see the card), and the distributed train plane (a one-rank NCCL
+`TorchTrainer` whose captured step holds its all-reduce, a
+`platform="cuda"` worker without a GPU refused).
 
 Every test here needs an NVIDIA GPU and `nvcc` and skips without them.
 On a machine with a card (and no JAX), run them with
@@ -936,3 +938,116 @@ def test_cpu_worker_replica_refuses_cuda(runtime):
             handle.generate_once.remote([1, 2], 2).result(timeout=300)
     finally:
         serve.shutdown()
+
+
+# -- the distributed train plane on the card -------------------------------
+
+def _make_nccl_loop():
+    # a factory: cloudpickle sends the loop by value (the train worker
+    # cannot import this test module)
+    def loop(config):
+        import json as json_
+        import os as os_
+        import tempfile
+
+        import torch as torch_
+        import torch.distributed as dist
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.train import TrainStepRunner
+        from ray_tpu_torch.train import array_checkpoint as ac
+
+        world = dist.get_world_size()
+        gen = torch_.Generator(device="cuda").manual_seed(0)
+        w0 = torch_.randn(256, 256, device="cuda", generator=gen)
+        x = torch_.randn(64, 256, device="cuda", generator=gen)
+
+        def step(carry, data):
+            w = carry["w"]
+            loss = (data @ w).square().mean()
+            loss.backward()
+            # the mean gradient and loss over the group, in the graph
+            flat = torch_.cat([w.grad.reshape(-1),
+                               loss.detach().reshape(1)])
+            dist.all_reduce(flat)
+            flat.div_(world)
+            with torch_.no_grad():
+                w.sub_(0.1 * flat[:-1].view_as(w))
+            w.grad = None
+            return carry, flat[-1]
+
+        carry = {"w": w0.clone().requires_grad_(True)}
+        runner = TrainStepRunner(step, device="cuda")
+        losses = []
+        for _ in range(3):
+            carry, loss = runner.run(carry, x)
+            losses.append(float(loss))
+        # the same steps eagerly, with no group
+        w = w0.clone().requires_grad_(True)
+        eager = []
+        for _ in range(3):
+            loss = (x @ w).square().mean()
+            loss.backward()
+            with torch_.no_grad():
+                w.sub_(0.1 * w.grad)
+            w.grad = None
+            eager.append(float(loss))
+        d = tempfile.mkdtemp()
+        ac.save_sharded(d, {"w": carry["w"].detach()})
+        with open(os_.path.join(d, "asv_index.0.json")) as f:
+            index = json_.load(f)
+        train.report({
+            "backend": dist.get_backend(), "world": world,
+            "device": torch_.cuda.current_device(),
+            "visible": os_.environ.get("CUDA_VISIBLE_DEVICES"),
+            "losses": losses, "eager": eager,
+            "cache": runner.cache_stats(),
+            "index": [index["process"], index["num_processes"]],
+            "w_equal": bool(torch_.equal(carry["w"].detach(),
+                                         w.detach()))})
+
+    return loop
+
+
+def test_one_rank_nccl_trainer_captures_its_all_reduce(runtime, tmp_path):
+    """A `TorchTrainer` GPU worker in a one-rank NCCL group: the step,
+    its all-reduce included, is captured on the first call and replayed
+    after (one miss, then hits), gives the eager steps' losses and
+    weights, and `array_checkpoint` under the group saves process 0 of
+    1."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+
+    result = train.TorchTrainer(
+        _make_nccl_loop(),
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        backend_config=train.TorchConfig(distributed="on",
+                                         platform="cuda"),
+        run_config=RunConfig(storage_path=str(tmp_path), name="nccl"),
+    ).fit()
+    m = result.metrics
+    assert (m["backend"], m["world"], m["device"], m["visible"]) == (
+        "nccl", 1, 0, "0")
+    assert m["cache"]["misses"] == 1 and m["cache"]["hits"] == 2
+    assert m["cache"]["retraces"] == 0
+    np.testing.assert_allclose(m["losses"], m["eager"], rtol=1e-6)
+    assert m["w_equal"]
+    assert m["index"] == [0, 1]
+
+
+def test_cuda_platform_worker_without_a_gpu_raises(runtime, tmp_path):
+    """`TorchConfig(platform="cuda")` on a worker that holds no GPU
+    (CUDA_VISIBLE_DEVICES is empty) fails the run; it never trains on
+    the CPU."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+
+    def loop(config):
+        train.report({"ran": True})
+
+    with pytest.raises(Exception, match="sees no CUDA device"):
+        train.TorchTrainer(
+            loop, scaling_config=ScalingConfig(num_workers=1),
+            backend_config=train.TorchConfig(platform="cuda"),
+            run_config=RunConfig(storage_path=str(tmp_path), name="nogpu"),
+        ).fit()

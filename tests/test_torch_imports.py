@@ -111,3 +111,73 @@ def test_serve_leaves_torch_unimported():
     assert "ray_tpu_torch.serve.llm.engine" not in loaded
     assert not [m for m in loaded if _forbidden(m)]
     assert set(serve) <= set(loaded)
+
+
+# pickles a TorchTrainer, a DataParallelTrainer and the Tune trainable
+# that `fit()` hands its trial actor; a fresh interpreter unpickles them
+_PICKLE_TRAINERS = r'''
+import sys
+import cloudpickle
+from ray_tpu_torch import train
+from ray_tpu_torch.air import RunConfig, ScalingConfig
+
+
+def loop(config):
+    import torch
+    train.report({"n": int(torch.ones(2).sum())})
+
+
+run = RunConfig(storage_path=sys.argv[1], name="r1")
+objs = [train.TorchTrainer(loop, backend_config=train.TorchConfig(
+            distributed="on", platform="cpu"),
+            scaling_config=ScalingConfig(num_workers=2), run_config=run),
+        train.DataParallelTrainer(loop, run_config=run)]
+objs.append(objs[0].as_trainable())
+sys.stdout.buffer.write(cloudpickle.dumps(objs))
+assert "torch" not in sys.modules
+'''
+
+
+def test_train_and_tune_leave_torch_unimported(tmp_path):
+    """`import ray_tpu_torch.train`, `.air` and `.tune` (and their
+    modules) import no torch, nor does unpickling a `TorchTrainer`, a
+    `DataParallelTrainer` or the trainable `fit()` runs under Tune: the
+    train controller and Tune's trial actor run without torch; the train
+    workers pay for it when their loop imports it."""
+    mods = sorted(m for m in _modules() if m.split(".")[:2] in (
+        ["ray_tpu_torch", "train"], ["ray_tpu_torch", "air"],
+        ["ray_tpu_torch", "tune"]))
+    assert "ray_tpu_torch.tune" in mods and "ray_tpu_torch.air" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "torch" not in loaded
+    assert not [m for m in loaded if _forbidden(m)]
+    assert {"ray_tpu_torch.train._internal.backend_executor",
+            "ray_tpu_torch.tune.tune_controller",
+            "ray_tpu_torch.train.array_checkpoint"} <= set(loaded)
+
+    blob = subprocess.run(
+        [sys.executable, "-c", _PICKLE_TRAINERS, str(tmp_path)], cwd=ROOT,
+        capture_output=True, timeout=120)
+    assert blob.returncode == 0, blob.stderr.decode()[-3000:]
+    code = (
+        "import json, pickle, sys\n"
+        "objs = pickle.loads(sys.stdin.buffer.read())\n"
+        "print(json.dumps([sorted(sys.modules),\n"
+        "                  [type(o).__name__ for o in objs]]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         input=blob.stdout, capture_output=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr.decode()[-3000:]
+    loaded, names = json.loads(out.stdout.decode().strip().splitlines()[-1])
+    assert names == ["TorchTrainer", "DataParallelTrainer", "type"]
+    assert "torch" not in loaded
+    assert "ray_tpu_torch.train.trainer" in loaded
+    assert not [m for m in loaded if _forbidden(m)]

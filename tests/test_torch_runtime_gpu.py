@@ -9,7 +9,8 @@ gives the same grant pattern. Also here: detection and its environment
 override, and three repairs around `kill` held against the JAX package
 (a killed actor inside a method ends at once and frees its GPU; a
 second kill of a dead actor returns at once; a killed named actor's
-name is free).
+name is free), and one around an actor that died under a call (the next
+call and a kill return at once, not after a 10 s connect).
 """
 
 import json
@@ -230,6 +231,86 @@ def test_kill_against_the_jax_package():
         "ray_tpu_torch": {"alive_10s_after_kill": False,
                           "second_kill_under_2s": True,
                           "dead_name_found": False}}
+
+
+# One script, either package: two actors whose processes die (os._exit
+# from a thread, as a killed rank does) while a call of the driver's is
+# in flight; at once after each death, a second call to the first and a
+# `kill` of the second, each timed.
+DEATH_SCRIPT = r'''
+import json, os, sys, threading, time, importlib
+pkg = sys.argv[1]
+rt = importlib.import_module(pkg)
+rt.init(num_cpus=2, object_store_memory=64 * 1024 * 1024,
+        **({"num_tpus": 0} if pkg == "ray_tpu" else {"num_gpus": 0}))
+
+@rt.remote
+class Mortal:
+    def die_soon(self):
+        def die():
+            time.sleep(0.5)
+            os._exit(1)
+        threading.Thread(target=die, daemon=True).start()
+
+    def wait(self, seconds):
+        time.sleep(seconds)
+        return seconds
+
+def died_mid_call(actor):
+    rt.get(actor.die_soon.remote(), timeout=120)
+    try:
+        rt.get(actor.wait.remote(30), timeout=60)
+        return False
+    except rt.ActorDiedError:
+        return True
+
+out = {}
+try:
+    called, killed = Mortal.remote(), Mortal.remote()
+    rt.get([called.wait.remote(0), killed.wait.remote(0)], timeout=120)
+    out["in_flight_failed"] = [died_mid_call(called)]
+    t0 = time.monotonic()
+    try:
+        rt.get(called.wait.remote(0), timeout=60)
+        out["next_call"] = "returned"
+    except rt.ActorDiedError:
+        out["next_call"] = "ActorDiedError"
+    out["next_call_s"] = time.monotonic() - t0
+    out["in_flight_failed"].append(died_mid_call(killed))
+    t0 = time.monotonic()
+    rt.kill(killed)
+    out["kill_s"] = time.monotonic() - t0
+finally:
+    rt.shutdown()
+print(json.dumps(out))
+'''
+
+
+def test_a_dead_actor_fails_fast_against_the_jax_package():
+    """F8: right after an actor's process dies under a call (before its
+    raylet has told the GCS), the JAX package's next call to it dials the
+    refused port for a whole connect timeout (10 s) and its `kill` holds
+    the caller as long, dialling it to send the exit notice. The port's
+    next call fails at once (the lost connection poisons the address)
+    and its kill returns without waiting for the dial; both packages
+    fail the in-flight call and the next one with ActorDiedError."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT))
+    procs = {pkg: subprocess.Popen(
+        [sys.executable, "-c", DEATH_SCRIPT, pkg], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pkg in ("ray_tpu", "ray_tpu_torch")}
+    results = {}
+    for pkg, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, f"{pkg}: {err[-3000:]}"
+        results[pkg] = json.loads(out.strip().splitlines()[-1])
+    for r in results.values():
+        assert r["in_flight_failed"] == [True, True], results
+        assert r["next_call"] == "ActorDiedError", results
+    port = results["ray_tpu_torch"]
+    # the kill's remaining cost is the GCS's 2 s budget for publishing
+    # the death to a subscriber that is the dead worker itself
+    assert port["next_call_s"] < 1.0 and port["kill_s"] < 3.0, results
 
 
 def test_detection_honours_the_environment(monkeypatch):

@@ -227,5 +227,5 @@ def test_client_drivers_are_deferred():
 def test_compiled_dag_channels_are_deferred():
     from ray_tpu_torch._private.core_worker import CoreWorker
 
-    with pytest.raises(NotImplementedError, match="S4d"):
+    with pytest.raises(NotImplementedError, match="S4e"):
         CoreWorker._start_channel_graph(None, [])
