@@ -153,7 +153,44 @@ a non-zero exit) on any failed check:
    the worker's start, `fit()` to the first report, step ms at K=1 and
    K=4 beside phase 5's, the checkpoint's persist ms, the kill to the
    replacement's first report, the restore, launches and peak memory;
-11. the `kernels` JSON line (every ported kernel with its numbers), the
+11. train_data: the `train` cell fed through Data. 512 rows of 1025
+   int32 tokens (numpy, seed 3) and an `id` column in 32 blocks, split
+   into `x` and `y` by a `map_batches` in tasks, go to a
+   `TorchTrainer(datasets={"train": ds})` GPU worker (one, no process
+   group) through `streaming_split(1)`'s coordinator actor; the worker
+   trains phase 5's GPT-2 125M (same seed and weights) on
+   `iter_batches(batch_size=16, drop_last=True, prefetch_batches=2)`,
+   each numpy batch copied to pinned host memory and then to the card
+   (`non_blocking`), through `TrainStepRunner` at K=1 for 4 steps, then
+   K=4 for 7 calls (32 steps, one pass). Checks: every row consumed once;
+   each loss within 1e-3 relative of an eager reference that the driver
+   runs after `fit()` on the rows each step consumed (blocks arrive in
+   completion order); one capture per K; n_layer forward and 2 n_layer
+   backward launches a step; no process or segment left. Prints step ms
+   at K=1 and K=4 beside phase 5's and the iterator wait a step;
+12. dag: the compiled DAG. Three `torch_stage`s over GPT-2 125M (the
+   forward, the last position's logits, the greedy ids) at B=8, T=1024,
+   bf16, fused by `experimental_compile()` into one `compiled_step`: one
+   CUDA graph (one miss, then replays), 12 forward launches an execute,
+   the output against the eager chain (ids under the near-tie rule, the
+   logits' max difference), two results held across executes distinct.
+   Then on a node of the port's runtime a num_gpus=1 actor holding GPT-2
+   125M (ids [8, 128] to the last logits, a CUDA tensor, and those to
+   the greedy ids) and a CPU actor consuming the ids, compiled onto
+   shared-memory channels, a `MultiOutputNode` returning [the consumer's
+   ids, the logits]: the ids equal the in-process greedy ids, the logits
+   arrive on the driver's card. Prints the fused execute against the
+   eager chain, and the compiled execute's median round trip over 50
+   against the lazy `execute()`'s;
+13. soak: the port's soak in local mode (30 s budget, seed 3, the
+   `ckpt_fail` and `data_stall` fault classes; its clock starts at the
+   gang's first report and leaves out a restart's outage; its train loop
+   on the CPU by design), with the
+   assertions of `tests/test_soak.py::test_soak_smoke_local`: both faults
+   fire and recover, every failure injected, resume accounting and ingest
+   watermarks clean. Prints the start to the first report and each
+   process's fired and expired faults;
+14. the `kernels` JSON line (every ported kernel with its numbers), the
    card line, and last the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -1667,8 +1704,8 @@ def _port_processes():
 
 def _assert_clean():
     """After a shutdown: no process of the port's runtime and no
-    /dev/shm/ray_tpu_torch_* segment (stores, rings, FIFOs) is left,
-    waiting up to 30 s for them to go."""
+    /dev/shm/ray_tpu_torch_* segment (stores, rings, compiled-DAG
+    channels, FIFOs) is left, waiting up to 30 s for them to go."""
     deadline = time.monotonic() + 30
     while (_port_processes() or glob.glob("/dev/shm/ray_tpu_torch_*")) \
             and time.monotonic() < deadline:
@@ -2759,6 +2796,635 @@ def phase_train_dist(want_losses, ref_ms, model="gpt2_125m", batch=16,
     return row
 
 
+TRAIN_DATA_DIR = Path(__file__).resolve().parent / "smoke_train_data"
+TRAIN_DATA_BLOCKS = 32     # the dataset's blocks
+TRAIN_DATA_K1_STEPS = 4    # steps at K=1, then K=4 calls:
+TRAIN_DATA_K4_CALLS = 7    # 32 steps in all, one pass over the rows
+# each loss against the eager reference's: sound runs on the H100 read
+# 5.2e-6-6.6e-6 (PERF.md); the batches' identity is checked exactly
+TRAIN_DATA_LOSS_RTOL = 1e-4
+
+
+def _split_xy(batch):
+    """`map_batches` (run in tasks): each row's first T tokens are the
+    inputs, its last T the targets."""
+    toks = batch["tokens"]
+    return {"id": batch["id"], "x": toks[:, :-1], "y": toks[:, 1:]}
+
+
+def _token_checksum(a):
+    """A batch's identity: its tokens weighted by their flat position,
+    so rows out of order or shifted change it."""
+    a = np.asarray(a, np.int64)
+    return int((a.reshape(-1) * np.arange(1, a.size + 1)).sum())
+
+
+def _data_tokens(rows, seq, vocab, seed):
+    """The dataset's token rows, [rows, seq + 1] int32 from numpy."""
+    return np.random.default_rng(seed).integers(
+        0, vocab, (rows, seq + 1)).astype(np.int32)
+
+
+def _data_loop(config):
+    """`train_data`'s training loop, in the `TorchTrainer`'s GPU worker
+    (sent by value without torch, as `_dist_loop`)."""
+    import chip_smoke
+
+    chip_smoke._data_train_worker(config)
+
+
+def _data_train_worker(config):
+    """GPT-2 125M as the `train` phase builds it (same seed and weights),
+    fed from the worker's `streaming_split` shard: numpy batches from
+    `iter_batches`, each copied to pinned host memory and then to the
+    card (`non_blocking`), into `TrainStepRunner` at K=1 for
+    TRAIN_DATA_K1_STEPS steps, then K=4 for TRAIN_DATA_K4_CALLS calls.
+    Each report carries the ids of the rows its steps consumed (a
+    streaming split hands blocks out in completion order), the checksums
+    of the `x` and `y` each step was given, and the host ms the loop
+    waited in the iterator."""
+    from ray_tpu_torch import train
+
+    device = config["device"]
+    batch, seq = config["batch"], config["seq"]
+    # this worker's main path: counts at 0 here, read at each report
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    cfg = getattr(gpt_mod.GPTConfig, config["model"])(
+        remat=False, max_seq_len=seq)
+    model, _, _ = _train_setup("gpt", cfg, config["seed"], batch, seq,
+                               partial(flash_attention, causal=True),
+                               device)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                            betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4,
+                            capturable=torch.device(device).type == "cuda")
+    carry = _adamw_carry(model, opt)
+
+    def train_step(carry, data):
+        loss = _loss(model, data["x"], data["y"])
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return carry, loss.detach()
+
+    shard = train.get_dataset_shard("train")
+    ids, sums, waits = [], [], []
+
+    def device_batches():
+        it = iter(shard.iter_batches(batch_size=batch, drop_last=True,
+                                     prefetch_batches=2))
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            waits.append((time.perf_counter() - t0) * 1e3)
+            if b is None:
+                return
+            ids.append(b["id"].tolist())
+            sums.append([_token_checksum(b["x"]), _token_checksum(b["y"])])
+            out = {}
+            for key in ("x", "y"):
+                host = torch.from_numpy(b[key])
+                if device == "cuda":
+                    host = host.pin_memory()
+                out[key] = host.to(device, non_blocking=True).long()
+            yield out
+
+    stream = device_batches()
+    tokens = batch * seq
+    flops = gpt_mod.flops_per_token(cfg, seq) * tokens
+    step = 0
+    for k, calls in ((1, TRAIN_DATA_K1_STEPS), (4, TRAIN_DATA_K4_CALLS)):
+        runner = TrainStepRunner(
+            train_step, steps_per_call=k, tokens_per_step=tokens,
+            flops_per_step=flops, peak_flops=PEAK_BF16_FLOPS, device=device)
+        for call in range(calls):
+            n_ids, n_waits = len(ids), len(waits)
+            t0 = time.perf_counter()
+            carry, loss = runner.run(carry, stream)
+            losses = [float(x) for x in loss.reshape(-1).tolist()]
+            ms = (time.perf_counter() - t0) * 1e3 / k
+            step += k
+            rec = runner.step_stats(1)[0]
+            train.report(dict(
+                step=step, k=k, losses=losses, step_ms=ms, miss=call == 0,
+                ids=ids[n_ids:], sums=sums[n_ids:],
+                wait_ms=sum(waits[n_waits:]) / k,
+                data_wait_ms=rec["data_wait_ms"] / k,
+                fwd_launches=flash_attention.launches,
+                bwd_launches=flash_attention_bwd.launches,
+                cache=runner.cache_stats(),
+                peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                          if device == "cuda" else 0.0)))
+        global_cache().evict(runner._compiled)
+        del runner
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    # one pass: the shard has no batch left
+    assert next(stream, None) is None, "train_data: rows left in the shard"
+
+
+def _data_reference(cfg, seed, batch, seq, toks, step_ids, device):
+    """The eager losses of the worker's steps in this process: the same
+    weights and AdamW (capturable on the card, as in the graphs), each
+    step on the rows the worker consumed at that step."""
+    model, _, _ = _train_setup("gpt", cfg, seed, batch, seq,
+                               partial(flash_attention, causal=True),
+                               device)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                            betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4,
+                            capturable=torch.device(device).type == "cuda")
+    _adamw_carry(model, opt)
+    losses = []
+    for rows in step_ids:
+        t = torch.from_numpy(toks[rows]).to(device).long()
+        loss = _loss(model, t[:, :-1], t[:, 1:])
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(loss.detach()))
+    del model, opt
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return losses
+
+
+def phase_train_data(ref_ms, model="gpt2_125m", batch=16, seq=1024,
+                     seed=3, device="cuda"):
+    """GPT-2 125M trained from a streaming Dataset (module docstring,
+    phase 11). `ref_ms` is the `train` phase's graphed step ms at K=1
+    and K=4."""
+    from ray_tpu_torch import data as rt_data
+    from ray_tpu_torch import train as train_mod
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+
+    t_phase = time.perf_counter()
+    card = card_line() if device == "cuda" else "cpu"
+    cfg = getattr(gpt_mod.GPTConfig, model)(remat=False, max_seq_len=seq)
+    steps = TRAIN_DATA_K1_STEPS + 4 * TRAIN_DATA_K4_CALLS
+    rows = steps * batch
+    toks = _data_tokens(rows, seq, cfg.vocab_size, seed)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    assert not _port_processes(), _port_processes()
+    shutil.rmtree(TRAIN_DATA_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=256 << 20,
+                       **({} if device == "cuda" else {"num_gpus": 1}))
+    init_s = time.perf_counter() - t0
+    try:
+        ds = rt_data.from_numpy(
+            {"id": np.arange(rows, dtype=np.int64), "tokens": toks},
+            parallelism=TRAIN_DATA_BLOCKS).map_batches(_split_xy)
+        trainer = train_mod.TorchTrainer(
+            _data_loop,
+            train_loop_config=dict(device=device, model=model, batch=batch,
+                                   seq=seq, seed=seed),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            backend_config=train_mod.TorchConfig(
+                distributed="off",
+                platform="cuda" if device == "cuda" else "cpu"),
+            run_config=RunConfig(name="train_data",
+                                 storage_path=str(TRAIN_DATA_DIR)),
+            datasets={"train": ds})
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        ray_tpu_torch.shutdown()
+    _assert_clean()
+    shutil.rmtree(TRAIN_DATA_DIR, ignore_errors=True)
+
+    hist = [m for m in result.metrics_history if "step" in m]
+    assert [m["step"] for m in hist] == [
+        *range(1, TRAIN_DATA_K1_STEPS + 1),
+        *range(TRAIN_DATA_K1_STEPS + 4, steps + 1, 4)], hist
+    step_ids = [r for m in hist for r in m["ids"]]
+    assert len(step_ids) == steps and all(len(r) == batch
+                                          for r in step_ids)
+    # every row once: one pass over the dataset, in the split's order
+    assert sorted(i for r in step_ids for i in r) == list(range(rows))
+    # each step was given the tokens of the rows it reported
+    step_sums = [c for m in hist for c in m["sums"]]
+    want_sums = [[_token_checksum(toks[r][:, :-1]),
+                  _token_checksum(toks[r][:, 1:])] for r in step_ids]
+    assert step_sums == want_sums, "train_data: x/y not the ids' rows"
+    losses = [x for m in hist for x in m["losses"]]
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    t0 = time.perf_counter()
+    want = _data_reference(cfg, seed, batch, seq, toks, step_ids, device)
+    reference_s = time.perf_counter() - t0
+    rel = [abs(g - w) / abs(w) for g, w in zip(losses, want)]
+    worst = max(rel)
+    assert worst <= TRAIN_DATA_LOSS_RTOL, (worst, losses, want)
+    # the steps ran as graphs: one capture per K, then only replays
+    cache = hist[-1]["cache"]
+    assert cache["misses"] == 2 and cache["retraces"] == 0 and \
+        cache["hits"] == len(hist) - 2, cache
+    # n_layer forward kernels a step, twice that backward (the plain
+    # path on the CPU counts none)
+    n_layer = cfg.n_layer
+    fwd, bwd = hist[-1]["fwd_launches"], hist[-1]["bwd_launches"]
+    if device == "cuda":
+        assert fwd == n_layer * steps, (fwd, n_layer * steps)
+        assert bwd == BWD_KERNELS_PER_CALL * n_layer * steps, bwd
+    k1 = [m for m in hist if m["k"] == 1 and not m["miss"]]
+    k4 = [m for m in hist if m["k"] == 4 and not m["miss"]]
+    row = dict(
+        init_s=init_s, fit_s=fit_s, reference_s=reference_s,
+        rows=rows, blocks=TRAIN_DATA_BLOCKS, steps=steps,
+        k1_step_ms=statistics.median(m["step_ms"] for m in k1),
+        k1_step_ms_all=[m["step_ms"] for m in k1],
+        k4_step_ms=statistics.median(m["step_ms"] for m in k4),
+        k4_step_ms_all=[m["step_ms"] for m in k4],
+        ref_ms=ref_ms,
+        wait_ms_per_step=statistics.median(m["wait_ms"] for m in k1 + k4),
+        wait_ms_all=[m["wait_ms"] for m in hist],
+        data_wait_ms_per_step=statistics.median(
+            m["data_wait_ms"] for m in k1 + k4),
+        first_ids=step_ids[0][:4], worst_loss_rel=worst,
+        peak_gib=max(m["peak_gib"] for m in hist),
+        fwd_launches=fwd, bwd_launches=bwd,
+        phase_s=time.perf_counter() - t_phase)
+    print(f"train_data: {rows} rows x {seq + 1} tokens in "
+          f"{TRAIN_DATA_BLOCKS} blocks, map_batches in tasks, "
+          f"streaming_split(1) to a TorchTrainer GPU worker; node up "
+          f"{init_s:.2f} s, fit() {fit_s:.2f} s (card: {card})")
+    print(f"train_data: step ms K=1 {row['k1_step_ms']:.2f} (runs "
+          f"{[round(x, 2) for x in row['k1_step_ms_all']]}) vs `train` K=1 "
+          f"{ref_ms[0]:.2f}; K=4 {row['k4_step_ms']:.2f} vs `train` K=4 "
+          f"{ref_ms[1]:.2f}; the loop waited {row['wait_ms_per_step']:.3f} "
+          f"ms a step in the iterator (median; the runner's data wait "
+          f"{row['data_wait_ms_per_step']:.3f} ms, with the copy and "
+          f"stack)")
+    print(f"train_data: {steps} steps, worst loss rel difference from the "
+          f"eager reference on the same rows {worst:.2e} (tol "
+          f"{TRAIN_DATA_LOSS_RTOL}); each step's x/y checksums equal its "
+          f"ids' rows'; first batch's ids {row['first_ids']}; "
+          f"launches fwd {fwd} bwd {bwd}; peak card memory in the worker "
+          f"{row['peak_gib']:.2f} GiB; the phase {row['phase_s']:.1f} s")
+    return row
+
+
+DAG_BATCH = 8              # the fused chain's rows, at T=1024
+DAG_ACTOR_IDS = (8, 128)   # the actor graph's token ids
+DAG_FUSED_RUNS = 20        # timed fused executes, and eager chains
+DAG_EXECUTES = 50          # timed compiled executes of the actor graph
+DAG_LAZY_EXECUTES = 20     # timed lazy executes of the same graph
+
+
+def _fused_stages(net):
+    """The fused chain's three stages over `net`: the forward, the last
+    position's logits, the greedy ids (with those logits)."""
+    def forward(ids):
+        with torch.no_grad():
+            return net(ids)
+
+    def last(logits):
+        return logits[:, -1, :]
+
+    def greedy(last_logits):
+        return torch.argmax(last_logits, dim=-1), last_logits
+
+    return forward, last, greedy
+
+
+def _dag_model(model, seed, device):
+    """(config, GPT) of `model` with inference weights from `seed`."""
+    cfg = getattr(gpt_mod.GPTConfig, model)()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return cfg, gpt_mod.GPT.from_params(
+        cfg, gpt_mod.init_params(cfg, gen, device=device),
+        attention_fn=partial(flash_attention, causal=True))
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+class _DagModelActor:
+    """GPT-2 with random weights from `seed` on the actor's card: token
+    ids to the last position's logits (a CUDA tensor), and logits to the
+    greedy ids (on the host)."""
+
+    def __init__(self, model, seed, device):
+        _, self.net = _dag_model(model, seed, device)
+        self.device = device
+
+    def info(self):
+        return dict(pid=os.getpid(),
+                    visible=os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+    def last_logits(self, ids):
+        with torch.no_grad():
+            return self.net(ids.to(self.device))[:, -1, :]
+
+    def greedy(self, logits):
+        return torch.argmax(logits, dim=-1).cpu()
+
+    def reset_counts(self):
+        flash_attention.launches = 0
+
+    def counts(self):
+        return flash_attention.launches
+
+
+@ray_tpu_torch.remote
+class _DagConsumer:
+    """A CPU actor that consumes the greedy ids."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def consume(self, ids):
+        self.calls += 1
+        return {"ids": ids, "calls": self.calls, "device": str(ids.device)}
+
+
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _check_greedy(ids, logits, want_ids, want_logits, label):
+    """The greedy ids equal the reference's, but where its top-2 logit
+    gap is a near tie; the logits within LOGIT_ATOL. Returns the logits'
+    max difference and the near ties."""
+    diff = float((logits.float() - want_logits.float()).abs().max())
+    assert diff <= LOGIT_ATOL, (label, diff)
+    gaps = _top2_gap(want_logits).tolist()
+    _, ties = _near_tie_compare([[int(x)] for x in ids.tolist()],
+                                [[int(x)] for x in want_ids.tolist()],
+                                [[g] for g in gaps], label)
+    return diff, ties
+
+
+def phase_dag(model="gpt2_125m", batch=DAG_BATCH, seq=1024,
+              actor_ids=DAG_ACTOR_IDS, seed=1, device="cuda"):
+    """The compiled DAG on the card (module docstring, phase 12)."""
+    from ray_tpu_torch import dag as dag_mod
+
+    t_phase = time.perf_counter()
+    card = card_line() if device == "cuda" else "cpu"
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- the fused chain: three torch_stages, one compiled_step --------------
+    cfg, net = _dag_model(model, seed, device)
+    forward, last, greedy = _fused_stages(net)
+    node = dag_mod.InputNode()
+    for fn in (forward, last, greedy):
+        node = dag_mod.bind(dag_mod.torch_stage(fn), node)
+    gen = np.random.default_rng(seed)
+    inputs = [torch.from_numpy(gen.integers(0, cfg.vocab_size, (batch, seq)))
+              .to(device) for _ in range(2)]
+
+    def eager(x):
+        return greedy(last(forward(x)))
+
+    # (ids, a copy of the last logits: not a view that keeps [B, T, V])
+    want = [(i, lg.clone()) for i, lg in map(eager, inputs)]
+    _sync(device)
+    stats0 = cache_stats()
+    compiled = node.experimental_compile()
+    assert compiled._fused is not None, "the chain was not fused"
+    flash_attention.launches = 0
+    try:
+        t0 = time.perf_counter()
+        held = compiled.execute(inputs[0])  # the miss: eager, then capture
+        _sync(device)
+        miss_s = time.perf_counter() - t0
+        other = compiled.execute(inputs[1])  # a replay over `held`'s graph
+        fused_ms = []
+        for i in range(DAG_FUSED_RUNS):
+            t0 = time.perf_counter()
+            out = compiled.execute(inputs[i % 2])
+            _sync(device)
+            fused_ms.append((time.perf_counter() - t0) * 1e3)
+        executes = 2 + DAG_FUSED_RUNS
+        fused_launches = flash_attention.launches
+        stats1 = cache_stats()
+        # two results held across executes stay distinct, each its input's
+        diffs, ties = [], []
+        for got, (w_ids, w_last) in zip((held, other), want):
+            d, t = _check_greedy(got[0], got[1], w_ids, w_last, "dag fused")
+            diffs.append(d)
+            ties += t
+        assert held[1].data_ptr() != other[1].data_ptr() != out[1].data_ptr()
+        distinct = not torch.equal(held[1], other[1])
+        assert distinct, "dag: two held results are equal"
+    finally:
+        compiled.teardown()
+    # one graph for the chain: one miss, then only hits, no retrace
+    assert stats1["misses"] == stats0["misses"] + 1, (stats0, stats1)
+    assert stats1["hits"] == stats0["hits"] + executes - 1, (stats0, stats1)
+    assert stats1["retraces"] == stats0["retraces"], (stats0, stats1)
+    if device == "cuda":
+        assert fused_launches == cfg.n_layer * executes, fused_launches
+    eager_ms = []
+    for i in range(DAG_FUSED_RUNS):
+        t0 = time.perf_counter()
+        eager(inputs[i % 2])
+        _sync(device)
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"dag fused: 3 torch_stages over GPT-2 B={batch} T={seq} as one "
+          f"compiled_step ({stats1['misses'] - stats0['misses']} graph, "
+          f"{stats1['hits'] - stats0['hits']} replays, miss "
+          f"{miss_s:.2f} s); execute {statistics.median(fused_ms):.3f} ms vs "
+          f"eager chain {statistics.median(eager_ms):.3f} ms (median of "
+          f"{DAG_FUSED_RUNS}); last logits vs eager max diff "
+          f"{max(diffs):.3g} (tol {LOGIT_ATOL}), near ties {len(ties)}; two "
+          f"held results distinct {distinct}; forward launches "
+          f"{fused_launches} = {fused_launches / executes:.0f} an execute "
+          f"(card: {card})")
+    fused_row = dict(miss_s=miss_s, execute_ms=statistics.median(fused_ms),
+                     execute_ms_all=fused_ms,
+                     eager_ms=statistics.median(eager_ms),
+                     max_logit_diff=max(diffs), near_ties=len(ties),
+                     executes=executes, launches=fused_launches,
+                     held_distinct=distinct)
+    del held, other, out, want, inputs, net
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- the actor graph on channels -----------------------------------------
+    ids = torch.from_numpy(gen.integers(0, cfg.vocab_size, actor_ids))
+    _, ref_net = _dag_model(model, seed, device)
+    with torch.no_grad():
+        ref_logits = ref_net(ids.to(device))[:, -1, :]
+    ref_ids = torch.argmax(ref_logits, dim=-1).cpu()
+    del ref_net
+    assert not _port_processes(), _port_processes()
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=2, object_store_memory=256 << 20,
+                       **({} if device == "cuda" else {"num_gpus": 1}))
+    init_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        gpu = _DagModelActor.remote(model, seed, device)
+        consumer = _DagConsumer.remote()
+        info = ray_tpu_torch.get(gpu.info.remote(), timeout=600)
+        ray_tpu_torch.get(consumer.consume.remote(torch.zeros(1)),
+                          timeout=600)
+        actors_s = time.perf_counter() - t0
+        assert info["visible"] == "0", info
+        logits_node = dag_mod.bind(gpu.last_logits, dag_mod.InputNode())
+        graph = dag_mod.MultiOutputNode([
+            dag_mod.bind(consumer.consume,
+                         dag_mod.bind(gpu.greedy, logits_node)),
+            logits_node])
+        t0 = time.perf_counter()
+        compiled = graph.experimental_compile()
+        compile_s = time.perf_counter() - t0
+        assert compiled._channels is not None, "not lowered onto channels"
+        ray_tpu_torch.get(gpu.reset_counts.remote(), timeout=60)
+        try:
+            t0 = time.perf_counter()
+            first, first_logits = compiled.execute(ids)
+            first_s = time.perf_counter() - t0
+            rtt = []
+            for _ in range(DAG_EXECUTES):
+                t0 = time.perf_counter()
+                got, logits = compiled.execute(ids)
+                rtt.append((time.perf_counter() - t0) * 1e3)
+            actor_launches = ray_tpu_torch.get(gpu.counts.remote(),
+                                               timeout=60)
+        finally:
+            compiled.teardown()
+        diffs, ties = [], []
+        for res, lg in ((first, first_logits), (got, logits)):
+            assert res["device"] == "cpu", res
+            assert lg.device.type == torch.device(device).type, lg.device
+            d, t = _check_greedy(res["ids"], lg, ref_ids, ref_logits,
+                                 "dag actor graph")
+            diffs.append(d)
+            ties += t
+        diff = max(diffs)
+        assert got["calls"] == DAG_EXECUTES + 2, got
+        if device == "cuda":
+            assert actor_launches == cfg.n_layer * (DAG_EXECUTES + 1), \
+                actor_launches
+        # the same graph, lazily: tasks and objects per call
+        lazy = []
+        for _ in range(DAG_LAZY_EXECUTES):
+            t0 = time.perf_counter()
+            lazy_out = ray_tpu_torch.get(graph.execute(ids), timeout=600)
+            lazy.append((time.perf_counter() - t0) * 1e3)
+        assert torch.equal(lazy_out[0]["ids"], got["ids"])
+        assert torch.equal(lazy_out[1].cpu(), logits.cpu())
+        del logits, first_logits, lazy_out
+    finally:
+        ray_tpu_torch.shutdown()
+    _assert_clean()
+    actor_row = dict(init_s=init_s, actors_s=actors_s, compile_s=compile_s,
+                     first_s=first_s, rtt_ms=statistics.median(rtt),
+                     rtt_ms_p90=statistics.quantiles(rtt, n=10)[-1],
+                     lazy_ms=statistics.median(lazy),
+                     max_logit_diff=diff, near_ties=len(ties),
+                     executes=DAG_EXECUTES + 1, launches=actor_launches,
+                     ids=got["ids"].tolist())
+    print(f"dag actor graph: a num_gpus=1 actor (GPT-2, ids {list(actor_ids)}"
+          f" to the last logits and the greedy ids) and a CPU actor on "
+          f"channels, MultiOutputNode [ids, logits]: ids equal in-process "
+          f"greedy (near ties {len(ties)}), logits on the driver's "
+          f"{torch.device(device).type} (max diff {diff:.3g}); compiled "
+          f"execute {actor_row['rtt_ms']:.3f} ms (median of {DAG_EXECUTES}, "
+          f"p90 {actor_row['rtt_ms_p90']:.3f}) vs lazy execute() "
+          f"{actor_row['lazy_ms']:.3f} ms (median of {DAG_LAZY_EXECUTES}); "
+          f"actors up {actors_s:.2f} s, compile {compile_s:.3f} s; actor "
+          f"launches {actor_launches}; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s (card: {card})")
+    return dict(fused=fused_row, actor=actor_row,
+                phase_s=time.perf_counter() - t_phase)
+
+
+SOAK_DIR = Path(__file__).resolve().parent / "smoke_soak"
+
+
+def _soak_faults(chaos_dir):
+    """Each faulted process's timed faults from its chaos artifact:
+    {"<role>-<pid>": ["<fault>@t+<offset> fired at +<s>" or
+    "<fault> expired:t+<offset>", ...]}, seconds from the epoch."""
+    out = {}
+    epoch_file = Path(chaos_dir).parent / "epoch"
+    epoch = float(epoch_file.read_text()) if epoch_file.exists() else 0.0
+    for path in sorted(Path(chaos_dir).glob("chaos-*.json")):
+        art = json.loads(path.read_text())
+        got = [f"{f['fault']}@t+{f['offset']:g} fired at "
+               f"+{f['ts'] - epoch:.2f} s" for f in art["timed_fired"]]
+        got += [f"{site.split('.', 1)[1]} {decision}"
+                for site, _, decision in art["schedule"]
+                if site.startswith("timed.") and "expired" in decision]
+        out[f"{art['role']}-{art['pid']}"] = got
+    return out
+
+
+def phase_soak(budget_s=30.0, seed=3):
+    """The port's soak, local mode (module docstring, phase 13), with the
+    assertions of `tests/test_soak.py::test_soak_smoke_local`."""
+    from ray_tpu_torch._private import fault_injection as fi
+    from ray_tpu_torch.soak import SoakConfig, SoakDriver
+
+    assert not _port_processes(), _port_processes()
+    shutil.rmtree(SOAK_DIR, ignore_errors=True)
+    cfg = SoakConfig(budget_s=budget_s, mode="local", seed=seed,
+                     workdir=str(SOAK_DIR), keep_workdir=True)
+    t0 = time.perf_counter()
+    try:
+        res = SoakDriver(cfg).run()
+        soak_s = time.perf_counter() - t0
+        _assert_clean()
+        faults = _soak_faults(SOAK_DIR / "chaos")
+        print(f"soak: the gang's first report {res['first_report_s']:.2f} s "
+              f"after the soak's start; faults by process {faults}")
+        led = res["ledger"]
+        assert led["faults_injected"] == 2, led
+        assert set(led["mttr_by_class"]) == set(cfg.fault_classes), led
+        assert led["recovered_count"] == 2, led
+        assert all(m["mttr_s"] is not None and m["mttr_s"] > 0
+                   for m in led["recoveries"]), led
+        assert led["non_injected_failures"] == [], led
+        assert led["failures_observed"] == led["injected_failures"] >= 1
+        assert led["commits"] > 0 and led["restores"] >= 1, led
+        assert led["resume_mismatches"] == [], led
+        assert res["post_restore_checks"] >= 1, res
+        assert res["watermark_checks"] > 0 and \
+            res["watermark_errors"] == [], res
+        assert res["final_step"] > 0 and res["steps_per_s"] > 0, res
+        assert res["ingest_tokens_per_s"] > 0, res
+        assert res["chaos_artifacts"], res
+        for name in res["chaos_artifacts"]:
+            with open(SOAK_DIR / "chaos" / name) as f:
+                assert json.load(f)["spec"] == res["spec"]
+        down = led["downtime_breakdown_s"]
+        assert down["total_s"] >= down["dead_s"] >= 0, down
+        for var in (fi.ENV_VAR, fi.LOG_ENV, fi.EPOCH_ENV, "RAY_TPU_TRACE"):
+            assert os.environ.get(var) is None, var
+    finally:
+        shutil.rmtree(SOAK_DIR, ignore_errors=True)
+    row = dict(soak_s=soak_s, spec=res["spec"], attempts=res["attempts"],
+               first_report_s=res["first_report_s"], faults=faults,
+               final_step=res["final_step"],
+               steps_per_s=res["steps_per_s"],
+               ingest_tokens_per_s=res["ingest_tokens_per_s"],
+               watermark_checks=res["watermark_checks"],
+               mttr_s={m["fault_class"]: m["mttr_s"]
+                       for m in led["recoveries"]},
+               commits=led["commits"], restores=led["restores"])
+    print(f"soak: {budget_s:.0f} s of running time from the first report, "
+          f"seed "
+          f"{seed}, {res['spec']}: {res['attempts']} restart(s), "
+          f"{res['final_step']} steps at {res['steps_per_s']} steps/s on "
+          f"the CPU, MTTR {row['mttr_s']}, {led['commits']} commits, "
+          f"{led['restores']} restore(s), {res['watermark_checks']} "
+          f"watermark checks, ledger clean; {soak_s:.2f} s in all")
+    return row
+
+
 def _numbers(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}
@@ -2784,7 +3450,8 @@ BWD_DESIGN = (
 
 
 def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
-                 spec, runtime, serve_row, train_dist, ptxas):
+                 spec, runtime, serve_row, train_dist, train_data, dag,
+                 ptxas):
     """The `kernels` entries: every ported kernel with its numbers. The
     forward at the serving path's largest prefill shape (with the GPT-2
     run's launches per prefill bucket at that bucket's time), the
@@ -2795,7 +3462,9 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
     spec runs, and of them the draft prefills; `runtime`: the GPU
     worker's and the GPU actor's engine, as they counted them; `serve`:
     the GPU replica's, on both paths; `train_dist`: the `TorchTrainer`'s
-    GPU worker's, both attempts)."""
+    GPU worker's, both attempts; `train_data`: the Dataset-fed
+    `TorchTrainer` GPU worker's; `dag`: the fused chain's executes;
+    `dag_actor`: the actor graph's GPU actor's)."""
     def at(table, shape):
         return next(r for r in table if r["shape"] == shape)
 
@@ -2841,6 +3510,9 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_runtime": runtime["launches"],
         "launches_serve": serve_row["launches"],
         "launches_train_dist": train_dist["fwd_launches"],
+        "launches_train_data": train_data["fwd_launches"],
+        "launches_dag": dag["fused"]["launches"],
+        "launches_dag_actor": dag["actor"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **_numbers(main_row),
         "at": MAIN_SHAPE,
@@ -2864,6 +3536,7 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_train_long": train_long["bwd_launches"],
         **graphed_launches("bwd_launches"),
         "launches_train_dist": train_dist["bwd_launches"],
+        "launches_train_data": train_data["bwd_launches"],
         "kernels_per_call": BWD_KERNELS_PER_CALL,
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in bwd_rows),
@@ -2877,6 +3550,7 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on a GPU",
               file=sys.stderr)
@@ -2925,16 +3599,25 @@ def main() -> int:
     k1, k4 = train["graphed"]["k1"], train["graphed"]["k4"]
     train_dist = phase_train_dist(k1["losses"],
                                   (k1["step_ms"], k4["step_ms"]))
+    # the `train` cell fed from a streaming Dataset through a TorchTrainer
+    train_data = phase_train_data((k1["step_ms"], k4["step_ms"]))
+    # the compiled DAG: a fused chain as one graph, an actor graph
+    dag = phase_dag()
+    # the soak: runtime, Data, train plane, chaos and ledger (on the CPU)
+    soak = phase_soak()
 
     kernels = kernels_line(rows, bwd_rows, train, train_llama, train_long,
                            gpt, llama, spec, runtime, serve_row, train_dist,
-                           ptxas)
+                           train_data, dag, ptxas)
     print(json.dumps({"build_s": build_s, "train": train,
                       "train_llama": train_llama, "train_long": train_long,
                       "engines": [gpt, llama], "engine_spec": spec,
                       "runtime": runtime, "serve": serve_row,
-                      "train_dist": train_dist}))
+                      "train_dist": train_dist, "train_data": train_data,
+                      "dag": dag, "soak": soak}))
     print(json.dumps({"kernels": kernels}))
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
+          f"{build_s:.1f} s of it")
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3134,14 +3134,139 @@ class CoreWorker:
             self._cancel_requested.pop(spec.task_id, None)
 
     def _start_channel_graph(self, stages: list) -> str:
-        """Compiled-DAG stage executor (the JAX package's per-actor loop
-        over shared-memory channels, `ray_tpu/experimental/channel.py`).
-        Not ported yet: the channels come with `dag.py` in slice S4e
-        (ROADMAP Queue 1)."""
-        raise NotImplementedError(
-            "ray_tpu_torch: compiled-DAG channels (the JAX package's "
-            "experimental/channel.py) are not ported yet; they come with "
-            "dag.py in slice S4e of the port (ROADMAP Queue 1)")
+        """Compiled-DAG stage executor (reference: the per-actor loop a
+        compiled graph installs, `compiled_dag_node.py:291`; channel
+        design `experimental_mutable_object_manager.h:37`): attach every
+        stage's in/out shm channels NOW (so a wrong-node placement fails
+        the compile call loudly), then pump this actor's nodes in
+        topological order on one daemon thread — fan-in reads one
+        channel per argument, fan-out writes one channel per consumer.
+        Frames carry a raw (tag, seq, length) header + pickled payload
+        (zero-pickle plane, ray_tpu_torch/experimental/channel.py); an
+        upstream error flows through untouched so the driver sees the
+        original, and lagging inputs are released from the header alone
+        — never deserialized — and re-read until their seqs agree
+        (self-healing after a driver-side timeout)."""
+        import pickle
+
+        from ray_tpu_torch.experimental.channel import (TAG_ERR, TAG_OK,
+                                                  ChannelClosedError,
+                                                  FrameScratch,
+                                                  ShmChannel,
+                                                  note_stale_skip)
+
+        attached: Dict[str, ShmChannel] = {}
+
+        def get_ch(name: str) -> ShmChannel:
+            if name not in attached:
+                attached[name] = ShmChannel.attach(name)
+            return attached[name]
+
+        prepared = []
+        for st in stages:
+            prepared.append((
+                st,
+                [(pos, get_ch(n)) for pos, n in st["ins"]],
+                [get_ch(n) for n in st["outs"]],
+                getattr(self._actor_instance, st["method"]),
+                FrameScratch(),
+            ))
+
+        def run_stage(st, ins, outs, method, scratch):
+            chans = dict(ins)
+            # headers first: (tag, seq, payload_view) per input, slots
+            # still held — nothing deserialized yet
+            heads = {pos: ch.read_frame() for pos, ch in ins}
+            while True:
+                mx = max(s for (_t, s, _v) in heads.values())
+                lagging = [p for p, (_t, s, _v) in heads.items()
+                           if s < mx]
+                if not lagging:
+                    break
+                for p in lagging:
+                    # stale frame: release straight from the header —
+                    # the payload is never unpickled just to be thrown
+                    # away
+                    heads[p] = None  # drop the payload view first
+                    chans[p].release_frame()
+                    note_stale_skip()
+                    heads[p] = chans[p].read_frame()
+            traced = tracing.enabled()
+            if traced:
+                # consumer half of each input hop's arrow: the frame
+                # header carries no trace ctx, so the producer span
+                # (driver/upstream stage) and this span share
+                # flow_id=<channel>:<seq> and the unified timeline
+                # stitches the cross-process arrow at merge time
+                for _pos, ch in ins:
+                    with tracing.span(
+                            "channel.read", kind="consumer",
+                            attrs={"channel": ch._name, "seq": mx,
+                                   "flow_id": f"{ch._name}:{mx}"}):
+                        pass
+            err = None
+            values = {}
+            for pos, (tag, _s, view) in heads.items():
+                if tag == TAG_ERR:
+                    if err is None:
+                        err = pickle.loads(view)
+                else:
+                    values[pos] = pickle.loads(view)
+                del view
+                heads[pos] = None
+                chans[pos].release_frame()
+            if err is not None:
+                tag, view = TAG_ERR, scratch.pack(err)
+            else:
+                fn_args = [None] * st["nargs"]
+                for pos, v in st["consts"]:
+                    fn_args[pos] = v
+                for pos, v in values.items():
+                    fn_args[pos] = v
+                try:
+                    if traced:
+                        with tracing.span(f"stage.{st['method']}",
+                                          attrs={"seq": mx}):
+                            result = method(*fn_args)
+                    else:
+                        result = method(*fn_args)
+                    tag, view = TAG_OK, scratch.pack(result)
+                except Exception as e:  # noqa: BLE001 — to driver
+                    tag, view = TAG_ERR, scratch.pack(
+                        f"{st['method']} failed: "
+                        f"{traceback.format_exc()}\n{e!r}")
+            for out in outs:
+                try:
+                    if traced:
+                        with tracing.span(
+                                "channel.write", kind="producer",
+                                attrs={"channel": out._name, "seq": mx,
+                                       "flow_id": f"{out._name}:{mx}"}):
+                            out.write_frame(tag, mx, view)
+                    else:
+                        out.write_frame(tag, mx, view)
+                except ValueError as e:
+                    # oversize result: the pump must survive and the
+                    # driver must see the cause (the tiny error frame
+                    # always fits)
+                    out.write_frame(TAG_ERR, mx, pickle.dumps(
+                        f"{st['method']} result does not fit the "
+                        f"channel: {e}"))
+
+        def loop():
+            try:
+                while True:
+                    for item in prepared:
+                        run_stage(*item)
+            except ChannelClosedError:
+                pass
+            finally:
+                for ch in attached.values():
+                    ch.close()
+
+        threading.Thread(target=loop, daemon=True,
+                         name="dag-graph").start()
+        return "started"
 
     @staticmethod
     def _has_async_methods(cls) -> bool:

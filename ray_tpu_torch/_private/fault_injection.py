@@ -82,10 +82,13 @@ workers); unscoped entries arm in any process. Entries arm when
 :func:`set_role` (called by each daemon's ``__main__``) or
 :meth:`FaultPlan.arm_timed` runs. Offsets are anchored to the
 ``RAY_TPU_CHAOS_EPOCH`` wall-clock timestamp when that env var is set
-(the soak driver exports it at run start, so ``at=37`` means 37 s into
-the SOAK regardless of when a restarted attempt re-arms the plan;
-entries whose fire time already passed at arm are recorded as expired
-and skipped); without the epoch, offsets run from arm time.
+(``at=37`` means 37 s into the SOAK regardless of when a restarted
+attempt re-arms the plan; entries whose fire time already passed at arm
+are recorded as expired and skipped); without the epoch, offsets run
+from arm time. ``RAY_TPU_CHAOS_EPOCH=@<path>`` names a file that will
+hold the timestamp: armed entries wait until it exists. The soak driver
+exports that form and writes the file at the gang's first report, so a
+fault never lands inside the workers' start-up, however long it takes.
 A daemon timer thread sleeps to each offset and fires it; state flips
 happen under ``_timed_lock`` but the fire itself (record / export /
 exit) runs OUTSIDE the lock — raylint's blocking-under-lock checker
@@ -128,6 +131,25 @@ _ARM_GRACE_S = 1.0
 _TIMED_FAULTS = ("kill", "crash_loop", "hb_brownout", "data_stall",
                  "ckpt_fail", "quota_flood", "drop_objects")
 _ROLES = ("driver", "gcs", "raylet", "worker", "train")
+
+
+def _epoch_base(now: float) -> Optional[float]:
+    """The wall-clock base of timed offsets: RAY_TPU_CHAOS_EPOCH's
+    timestamp, or the one its `@<path>` file holds (None while the file
+    does not exist yet); `now` without the variable."""
+    epoch = os.environ.get(EPOCH_ENV, "")
+    if not epoch:
+        return now
+    if epoch.startswith("@"):
+        try:
+            with open(epoch[1:]) as f:
+                return float(f.read())
+        except (OSError, ValueError):
+            return None
+    try:
+        return float(epoch)
+    except ValueError:
+        return now
 
 
 class TimedFault(NamedTuple):
@@ -547,18 +569,14 @@ class FaultPlan:
         with no role match any process). Offsets are anchored to
         RAY_TPU_CHAOS_EPOCH when set (wall-clock soak time — a
         restarted attempt re-arming the plan keeps the original
-        schedule), else to NOW. A daemon timer thread fires them.
+        schedule; an `@<path>` epoch once its file exists), else to
+        NOW. A daemon timer thread fires them.
         Idempotent per entry; entries already more than _ARM_GRACE_S
         past their anchored fire time expire instead of firing into the
         middle of a fresh attempt."""
-        epoch = os.environ.get(EPOCH_ENV, "")
         now = time.time()
-        try:
-            base = float(epoch) if epoch else now
-        except ValueError:
-            base = now
+        base = _epoch_base(now)
         due: List[Tuple[int, TimedFault]] = []
-        expired: List[TimedFault] = []
         with self._timed_lock:
             for i, tf in enumerate(self.timed):
                 if i in self._armed:
@@ -566,13 +584,9 @@ class FaultPlan:
                 if tf.role is not None and tf.role != role:
                     continue
                 self._armed.add(i)
-                if now - (base + tf.offset) > _ARM_GRACE_S:
-                    expired.append(tf)
-                else:
-                    due.append((i, tf))
-        for tf in expired:
-            self._record(f"timed.{tf.fault}",
-                         f"expired:t+{tf.offset:g}")
+                due.append((i, tf))
+        if base is not None:
+            due = self._drop_expired(due, base, now)
         if not due:
             return
         thread = threading.Thread(
@@ -580,11 +594,33 @@ class FaultPlan:
             daemon=True, name=f"chaos-timed-{role}")
         thread.start()
 
+    def _drop_expired(self, due: List[Tuple[int, TimedFault]],
+                      base: float, now: float
+                      ) -> List[Tuple[int, TimedFault]]:
+        """Record the entries more than _ARM_GRACE_S past their anchored
+        fire time as expired; return the others."""
+        kept = []
+        for i, tf in due:
+            if now - (base + tf.offset) > _ARM_GRACE_S:
+                self._record(f"timed.{tf.fault}",
+                             f"expired:t+{tf.offset:g}")
+            else:
+                kept.append((i, tf))
+        return kept
+
     def _timed_run(self, due: List[Tuple[int, TimedFault]],
-                   base: float) -> None:
-        """Timer loop: sleep to each anchored fire time, then fire. All
+                   base: Optional[float]) -> None:
+        """Timer loop: wait for the epoch file when the base is not
+        known yet, then sleep to each anchored fire time and fire. All
         sleeping and firing happens OUTSIDE _timed_lock — only the
         state flip inside _fire_timed takes it."""
+        while base is None:
+            if self._timed_stop.wait(0.05):
+                return
+            now = time.time()
+            base = _epoch_base(now)
+            if base is not None:
+                due = self._drop_expired(due, base, now)
         for _, tf in sorted(due, key=lambda d: d[1].offset):
             while not self._timed_stop.is_set():
                 remaining = base + tf.offset - time.time()

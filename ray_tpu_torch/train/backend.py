@@ -151,8 +151,12 @@ class _TorchBackend(Backend):
         cfg = backend_config
         n = len(worker_group)
         want = cfg.distributed
-        if cfg.platform is None and (
+        if cfg.platform != "cuda" and (
                 want == "off" or (want == "auto" and n == 1)):
+            # no group to form, and nothing to check: only a `cuda`
+            # platform is probed (its workers must see a GPU). Probing
+            # imports torch in every worker, seconds on a cold host
+            # before the loop starts, as the JAX backend never does here
             return
         platforms = worker_group.execute(_worker_platform, cfg.platform)
         if want == "off" or (want == "auto" and (

@@ -10,7 +10,10 @@ a GPU worker on tensors from the store, a CUDA tensor put in a GPU
 worker fetched by the driver onto the card, a CPU worker that cannot
 see the card), and the distributed train plane (a one-rank NCCL
 `TorchTrainer` whose captured step holds its all-reduce, a
-`platform="cuda"` worker without a GPU refused).
+`platform="cuda"` worker without a GPU refused), and Data and the
+compiled DAG on the card (a fused `torch_stage` chain's held results, a
+capture failure that raises, a CUDA tensor across a channel from a GPU
+actor, a `TorchTrainer` GPU worker on a `streaming_split` shard).
 
 Every test here needs an NVIDIA GPU and `nvcc` and skips without them.
 On a machine with a card (and no JAX), run them with
@@ -1051,3 +1054,125 @@ def test_cuda_platform_worker_without_a_gpu_raises(runtime, tmp_path):
             backend_config=train.TorchConfig(platform="cuda"),
             run_config=RunConfig(storage_path=str(tmp_path), name="nogpu"),
         ).fit()
+
+
+# -- Data and the compiled DAG on the card ---------------------------------
+
+def test_fused_dag_results_held_across_executes_stay_distinct(cuda):
+    """A fused `torch_stage` chain on the card is one graph (one miss,
+    then replays); `execute` returns copies, so two results held across
+    executes stay distinct, each its own input's."""
+    from ray_tpu_torch import dag as dag_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn(64, 64, device=cuda, generator=gen)
+
+    def matmul(x):
+        return x @ w
+
+    def act(y):
+        return torch.tanh(y).sum(dim=-1)
+
+    node = dag_mod.bind(dag_mod.torch_stage(act), dag_mod.bind(
+        dag_mod.torch_stage(matmul), dag_mod.InputNode()))
+    compiled = node.experimental_compile()
+    xs = [torch.randn(8, 64, device=cuda, generator=gen) for _ in range(3)]
+    try:
+        outs = [compiled.execute(x) for x in xs]
+        torch.cuda.synchronize()
+        stats = compiled._fused.stats.as_dict()
+        for x, out in zip(xs, outs):
+            torch.testing.assert_close(out, act(matmul(x)))
+        assert len({o.data_ptr() for o in outs}) == 3
+    finally:
+        compiled.teardown()
+    assert stats["misses"] >= 1 and stats["hits"] >= 2
+
+
+def test_fused_dag_capture_failure_raises(cuda):
+    """A chain whose capture fails (a host sync) raises at its first
+    execute; it never falls back to the lazy path."""
+    from ray_tpu_torch import dag as dag_mod
+
+    def synced(x):
+        return x * float(x.sum())  # a host sync: not capturable
+
+    compiled = dag_mod.bind(dag_mod.torch_stage(synced),
+                            dag_mod.InputNode()).experimental_compile()
+    try:
+        with pytest.raises(Exception) as err:
+            compiled.execute(torch.ones(4, device=cuda))
+        assert "compiled_step: capturing" in "".join(
+            getattr(err.value, "__notes__", []))
+    finally:
+        compiled.teardown()
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+class _CudaStage:
+    def scale(self, x):
+        return x.cuda() * 2.0
+
+
+def test_cuda_tensor_crosses_a_channel_from_a_gpu_actor(runtime):
+    """A compiled actor graph whose GPU actor returns a CUDA tensor: the
+    frame copies it to the host and the driver reads it onto its card."""
+    from ray_tpu_torch import dag as dag_mod
+
+    actor = _CudaStage.remote()
+    compiled = dag_mod.bind(actor.scale,
+                            dag_mod.InputNode()).experimental_compile()
+    assert compiled._channels is not None
+    try:
+        for seed in range(3):
+            x = torch.randn(16, 8, generator=torch.Generator().manual_seed(
+                seed), dtype=torch.float32).to(torch.bfloat16)
+            got = compiled.execute(x)
+            assert got.device.type == "cuda" and got.dtype == torch.bfloat16
+            assert torch.equal(got.cpu(), x * 2.0)
+    finally:
+        compiled.teardown()
+        ray_tpu_torch.kill(actor)
+
+
+def _make_shard_loop():
+    # a factory: cloudpickle sends the loop by value
+    def loop(config):
+        import torch as torch_
+
+        from ray_tpu_torch import train
+
+        shard = train.get_dataset_shard("train")
+        total, ids = 0, []
+        for b in shard.iter_batches(batch_size=16, prefetch_batches=2):
+            x = torch_.from_numpy(b["x"]).pin_memory().to(
+                "cuda", non_blocking=True)
+            total += int(x.sum())
+            ids += b["id"].tolist()
+        train.report({"total": total, "ids": ids,
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES")})
+
+    return loop
+
+
+def test_trainer_gpu_worker_consumes_a_streaming_split_shard(runtime,
+                                                             tmp_path):
+    """A `TorchTrainer` GPU worker consumes its `streaming_split` shard
+    (a map_batches run in tasks) and moves the batches to the card."""
+    from ray_tpu_torch import data, train
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+
+    ds = data.range(256, parallelism=8).map_batches(
+        lambda b: {"id": b["id"], "x": b["id"] * 3})
+    result = train.TorchTrainer(
+        _make_shard_loop(),
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        backend_config=train.TorchConfig(distributed="off",
+                                         platform="cuda"),
+        run_config=RunConfig(storage_path=str(tmp_path), name="shard"),
+        datasets={"train": ds},
+    ).fit()
+    m = result.metrics
+    assert m["visible"] == "0"
+    assert sorted(m["ids"]) == list(range(256))
+    assert m["total"] == 3 * sum(range(256))

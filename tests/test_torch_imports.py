@@ -181,3 +181,36 @@ def test_train_and_tune_leave_torch_unimported(tmp_path):
     assert "torch" not in loaded
     assert "ray_tpu_torch.train.trainer" in loaded
     assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_data_dag_experimental_and_soak_leave_torch_unimported():
+    """`import ray_tpu_torch.data`, `.dag`, `.experimental` and `.soak`
+    (and their modules) import no torch, nor does unpickling a dataset:
+    the split coordinator and the train controller unpickle datasets, and
+    a CPU stage of a compiled graph reads frames, without torch. Only the
+    code that touches tensors imports it: the fused DAG path, frames that
+    hold tensors, the soak's train loop."""
+    mods = sorted(m for m in _modules() if m.split(".")[:2] in (
+        ["ray_tpu_torch", "data"], ["ray_tpu_torch", "dag"],
+        ["ray_tpu_torch", "experimental"], ["ray_tpu_torch", "soak"]))
+    assert {"ray_tpu_torch.data.iterator", "ray_tpu_torch.dag",
+            "ray_tpu_torch.experimental.channel",
+            "ray_tpu_torch.soak.driver"} <= set(mods)
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import cloudpickle\n"
+        "from ray_tpu_torch import data\n"
+        "ds = data.range(8).map_batches(lambda b: {'x': b['id'] * 2})\n"
+        "blob = cloudpickle.dumps(ds)\n"
+        "import pickle\n"
+        "pickle.loads(blob)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "torch" not in loaded
+    assert not [m for m in loaded if _forbidden(m)]
+    assert set(mods) <= set(loaded)

@@ -214,7 +214,8 @@ def test_serializer_leaves_torch_unimported():
     assert out.stdout.strip() == "False"
 
 
-# The two paths the port defers to later slices raise, naming the slice.
+# The paths the port deferred to later slices: `client://` drivers still
+# raise, naming the slice; the compiled-DAG channels came with S4e.
 
 def test_client_drivers_are_deferred():
     import ray_tpu_torch
@@ -225,7 +226,12 @@ def test_client_drivers_are_deferred():
 
 
 def test_compiled_dag_channels_are_deferred():
+    """No longer deferred: the stage executor is ported, and a stage
+    whose channel does not exist fails at install (the compile call),
+    before any method runs (`tests/test_torch_dag.py` drives it)."""
     from ray_tpu_torch._private.core_worker import CoreWorker
 
-    with pytest.raises(NotImplementedError, match="S4e"):
-        CoreWorker._start_channel_graph(None, [])
+    stage = {"method": "f", "nargs": 1, "consts": [], "outs": [],
+             "ins": [(0, "ray_tpu_torch_ch_0_missing_0")]}
+    with pytest.raises(FileNotFoundError):
+        CoreWorker._start_channel_graph(None, [stage])

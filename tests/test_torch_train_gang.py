@@ -401,3 +401,21 @@ def test_cuda_platform_worker_without_a_gpu_raises(cluster, tmp_path):
             backend_config=train.TorchConfig(platform="cuda"),
             run_config=RunConfig(storage_path=str(tmp_path), name="nogpu"),
         ).fit()
+
+
+def test_cpu_platform_worker_starts_without_torch(cluster, tmp_path):
+    """`TorchConfig(distributed="off", platform="cpu")` forms no group
+    and has nothing to check, so the workers start without importing
+    torch (the JAX backend imports nothing there either): a loop that
+    does not import torch finds it unimported."""
+    def loop(config):
+        import sys as sys_
+
+        train.report({"torch": "torch" in sys_.modules})
+
+    result = train.TorchTrainer(
+        loop, scaling_config=ScalingConfig(num_workers=2),
+        backend_config=train.TorchConfig(distributed="off", platform="cpu"),
+        run_config=RunConfig(storage_path=str(tmp_path), name="cpuoff"),
+    ).fit()
+    assert result.metrics["torch"] is False
