@@ -126,7 +126,9 @@ a non-zero exit) on any failed check:
    the deployment, the controller reclaims the dead replica's arena
    record (`serve_llm_arenas_reclaimed_total` 1), the stream resumes on
    the replacement and equals the replacement's own answer, whose first
-   32 tokens are phase 6's. Prints the replica's time to come up, tok/s,
+   32 tokens are phase 6's. The ring's domain segment is sized from the
+   model's max_seq_len (its bytes checked against the layout's formula
+   and printed). Prints the replica's time to come up, tok/s,
    TTFT and TPOT p50/p90 (request recorder), the replacement's first
    token after the kill. Each shutdown leaves no process, no
    /dev/shm/ray_tpu_torch_* segment (store, ring, FIFOs) and the card's
@@ -189,8 +191,34 @@ a non-zero exit) on any failed check:
    assertions of `tests/test_soak.py::test_soak_smoke_local`: both faults
    fire and recover, every failure injected, resume accounting and ingest
    watermarks clean. Prints the start to the first report and each
-   process's fired and expired faults;
-14. the `kernels` JSON line (every ported kernel with its numbers), the
+   process's fired and expired faults. Then the same soak in cluster
+   mode (a head with one CPU, one two-CPU worker node, the autoscaler
+   over a `FakeMultiNodeProvider`, the `kill@raylet` fault class) with
+   the same assertions: the kill fires in the worker node's raylet and
+   recovers on a node the autoscaler launched;
+14. cluster: the cluster tooling. A cluster of the port's runtime whose
+   head declares {"CPU": 2} (no GPU), and an `Autoscaler` over a
+   `FakeMultiNodeProvider` with one node type {"CPU": 2, "GPU": 1}
+   (max_workers 1, idle timeout 5 s). `JobSubmissionClient.submit_job`
+   runs a driver script (written to `smoke_cluster/`) that runs a
+   two-step `workflow`: a CPU step makes phase 6's prompts (numpy, seed
+   1), and a num_gpus=1 step builds GPT-2 125M from phase 6's seed on
+   the card and serves them through `LLMEngine` with every bucket a CUDA
+   graph, 32 new tokens each, counting the forward kernel's launches
+   from 0 just before the requests; then `workflow.resume` of the same
+   id. Checks: the job SUCCEEDED; the autoscaler launched exactly one
+   `gpu` node, `list_nodes` showed it alive with its GPU during the job,
+   and the GPU step ran there; the tokens equal phase 6's under the
+   near-tie rule and the kernel ran n_layer times per prefill; the
+   resume ran no task (`list_tasks` shows one finished task of each
+   step) and returned the stored output; `timeline()` holds the GPU
+   step's task; once idle past the timeout the node is terminated,
+   shows dead, and the card's free memory comes back to within 256 MiB
+   of its value before the phase; no process or segment is left.
+   Prints the submit to the node's registration, the registration to
+   the first token, the job's and the resume's seconds, idle to
+   termination, and the card's free memory before, during and after;
+15. the `kernels` JSON line (every ported kernel with its numbers), the
    card line, and last the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -2327,6 +2355,16 @@ def _serve_cluster(path, gpt, cfg, buckets, prompts, store_bytes, free0,
             "serve: the replica does not hold the GPU"
         ring = _serve_ring("llm") if ring_path else None
         stats0 = ring.stats() if ring_path else None
+        domain_bytes = None
+        if ring_path:
+            # the domain's request slots are sized from the model's
+            # max_seq_len at deploy time
+            domain_bytes = os.stat(
+                "/dev/shm" + dispatch.domain_segment("llm")).st_size
+            want = dispatch.domain_bytes(
+                ring.table_cap, dispatch.ring_slots(),
+                dispatch.request_slot_bytes(cfg.max_seq_len))
+            assert domain_bytes == want, (domain_bytes, want)
         request_recorder.clear()
         # the main path: counts at 0 just before, read just after
         handle.kernel_launches.remote(reset=True).result(timeout=60)
@@ -2371,7 +2409,9 @@ def _serve_cluster(path, gpt, cfg, buckets, prompts, store_bytes, free0,
                    ttft_ms_p50_p90=ttft, tpot_ms_p50_p90=tpot,
                    flash_launches=fwd, prefills=prefills,
                    compared_tokens=compared, near_ties=ties,
-                   stream=want_kind, ring=ring_row)
+                   stream=want_kind, ring=ring_row,
+                   domain_mib=(None if domain_bytes is None
+                               else domain_bytes / 2**20))
         print(f"serve[{path}]: GPT-2 125M replica (num_gpus=1) up in "
               f"{up_s:.2f} s (`serve.run` {run_s:.2f} s: the controller's "
               f"start and the deploy; then the GPU worker's start, the "
@@ -2388,7 +2428,9 @@ def _serve_cluster(path, gpt, cfg, buckets, prompts, store_bytes, free0,
               f"stop(s)"
               + (f"; ring enqueued {ring_row['enqueued']} drained "
                  f"{ring_row['drained']} in {ring_row['drain_batches']} "
-                 f"batches" if ring_path else "")
+                 f"batches, its domain segment "
+                 f"{domain_bytes / 2**20:.1f} MiB of /dev/shm (slots for "
+                 f"a {cfg.max_seq_len}-token prompt)" if ring_path else "")
               + f" (card: {card})")
         if ring_path:
             # the kill stream takes the Python path: a native stream has
@@ -3364,27 +3406,58 @@ def _soak_faults(chaos_dir):
 
 
 def phase_soak(budget_s=30.0, seed=3):
-    """The port's soak, local mode (module docstring, phase 13), with the
-    assertions of `tests/test_soak.py::test_soak_smoke_local`."""
+    """The port's soak (module docstring, phase 13): local mode with the
+    assertions of `tests/test_soak.py::test_soak_smoke_local`, then
+    cluster mode with the same assertions, its `kill@raylet` fired in a
+    worker node's raylet and recovered on a node the autoscaler
+    launched."""
+    from ray_tpu_torch.soak import SoakConfig
+
+    row = _run_soak(SoakConfig(budget_s=budget_s, mode="local", seed=seed,
+                               workdir=str(SOAK_DIR), keep_workdir=True),
+                    "soak")
+    cluster = _run_soak(
+        SoakConfig(budget_s=budget_s, mode="cluster", seed=seed,
+                   fault_classes=("kill@raylet",), cluster_nodes=1,
+                   cpus_per_node=2.0, autoscaler_interval_s=0.5,
+                   workdir=str(SOAK_DIR), keep_workdir=True),
+        "soak[cluster]")
+    killed = [f for proc, fired in cluster["faults"].items()
+              if proc.startswith("raylet-") for f in fired
+              if f.startswith("kill@") and " fired " in f]
+    assert len(killed) == 1, cluster["faults"]
+    assert cluster["autoscaled_nodes"] >= 1, cluster
+    print(f"soak[cluster]: `kill@raylet` fired in a worker node's raylet "
+          f"({killed[0]}) and recovered in "
+          f"{cluster['mttr_s']['kill@raylet']:.2f} s; the autoscaler "
+          f"launched {cluster['autoscaled_nodes']} node(s)")
+    row["cluster"] = cluster
+    return row
+
+
+def _run_soak(cfg, label):
+    """One soak of `cfg` with the assertions of
+    `tests/test_soak.py::test_soak_smoke_local`; its row."""
     from ray_tpu_torch._private import fault_injection as fi
-    from ray_tpu_torch.soak import SoakConfig, SoakDriver
+    from ray_tpu_torch.soak import SoakDriver
 
     assert not _port_processes(), _port_processes()
     shutil.rmtree(SOAK_DIR, ignore_errors=True)
-    cfg = SoakConfig(budget_s=budget_s, mode="local", seed=seed,
-                     workdir=str(SOAK_DIR), keep_workdir=True)
+    budget_s, seed = cfg.budget_s, cfg.seed
+    n_faults = len(cfg.fault_classes) * cfg.faults_per_class
     t0 = time.perf_counter()
     try:
         res = SoakDriver(cfg).run()
         soak_s = time.perf_counter() - t0
         _assert_clean()
         faults = _soak_faults(SOAK_DIR / "chaos")
-        print(f"soak: the gang's first report {res['first_report_s']:.2f} s "
-              f"after the soak's start; faults by process {faults}")
+        print(f"{label}: the gang's first report "
+              f"{res['first_report_s']:.2f} s after the soak's start; "
+              f"faults by process {faults}")
         led = res["ledger"]
-        assert led["faults_injected"] == 2, led
+        assert led["faults_injected"] == n_faults, led
         assert set(led["mttr_by_class"]) == set(cfg.fault_classes), led
-        assert led["recovered_count"] == 2, led
+        assert led["recovered_count"] == n_faults, led
         assert all(m["mttr_s"] is not None and m["mttr_s"] > 0
                    for m in led["recoveries"]), led
         assert led["non_injected_failures"] == [], led
@@ -3406,8 +3479,10 @@ def phase_soak(budget_s=30.0, seed=3):
             assert os.environ.get(var) is None, var
     finally:
         shutil.rmtree(SOAK_DIR, ignore_errors=True)
-    row = dict(soak_s=soak_s, spec=res["spec"], attempts=res["attempts"],
+    row = dict(mode=cfg.mode, soak_s=soak_s, spec=res["spec"],
+               attempts=res["attempts"],
                first_report_s=res["first_report_s"], faults=faults,
+               autoscaled_nodes=res.get("autoscaled_nodes"),
                final_step=res["final_step"],
                steps_per_s=res["steps_per_s"],
                ingest_tokens_per_s=res["ingest_tokens_per_s"],
@@ -3415,13 +3490,336 @@ def phase_soak(budget_s=30.0, seed=3):
                mttr_s={m["fault_class"]: m["mttr_s"]
                        for m in led["recoveries"]},
                commits=led["commits"], restores=led["restores"])
-    print(f"soak: {budget_s:.0f} s of running time from the first report, "
-          f"seed "
+    print(f"{label}: {cfg.mode} mode, {budget_s:.0f} s of running time "
+          f"from the first report, seed "
           f"{seed}, {res['spec']}: {res['attempts']} restart(s), "
           f"{res['final_step']} steps at {res['steps_per_s']} steps/s on "
           f"the CPU, MTTR {row['mttr_s']}, {led['commits']} commits, "
           f"{led['restores']} restore(s), {res['watermark_checks']} "
           f"watermark checks, ledger clean; {soak_s:.2f} s in all")
+    return row
+
+
+CLUSTER_DIR = Path(__file__).resolve().parent / "smoke_cluster"
+CLUSTER_IDLE_S = 5.0          # the autoscaler's idle timeout
+CLUSTER_UPDATE_S = 0.5        # its reconcile interval
+CLUSTER_JOB_TIMEOUT_S = 300   # the job (18 s on the H100): a GPU node's
+                              # start, the GPU worker's, the engine's
+                              # warm-up and capture, 8 requests
+CLUSTER_WORKFLOW_ID = "smoke-gpt"
+
+# The submitted job's driver (written to CLUSTER_DIR/job.py): a two-step
+# workflow, the prompts on a CPU worker and GPT-2 on a num_gpus=1 worker,
+# then a resume of the same id; one JSON line "CLUSTER_JOB {...}" last.
+CLUSTER_JOB_SCRIPT = r'''
+import json, os, sys, time
+
+import ray_tpu_torch
+from ray_tpu_torch import dag, workflow
+
+with open(sys.argv[1]) as f:
+    conf = json.load(f)
+
+
+@ray_tpu_torch.remote(num_cpus=1)
+def cpu_prompts(vocab_size, prompt_lens, seed):
+    """The `gpt` engine phase's prompts (numpy, seed 1), the 3rd and 4th
+    sharing a 64-token prefix."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shared = list(rng.integers(1, vocab_size, 64))
+    prompts = []
+    for i, n in enumerate(prompt_lens):
+        if i in (2, 3):
+            prompts.append(shared + list(rng.integers(1, vocab_size,
+                                                      n - 64)))
+        else:
+            prompts.append(list(rng.integers(1, vocab_size, n)))
+    return [[int(x) for x in p] for p in prompts]
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def gpu_generate(prompts, model, seed, buckets, max_new, device):
+    """GPT-2 from `seed` through `LLMEngine`, every bucket a CUDA graph,
+    the prompts served at once; the flash kernel's launches counted from
+    0 just before the requests and read just after."""
+    t_entry = time.time()
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the GPU step sees no CUDA device")
+    from ray_tpu_torch.models import gpt as gpt_mod
+    from ray_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_attention_bwd)
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+
+    ctx = ray_tpu_torch.get_runtime_context()
+    cfg = getattr(gpt_mod.GPTConfig, model)()
+    t0 = time.time()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = gpt_mod.init_params(cfg, gen, device=device)
+    eng = LLMEngine(model="gpt", model_cfg=cfg, params=params,
+                    device=device,
+                    engine_config=EngineConfig(batch_buckets=(1, 2, 4, 8),
+                                               prefill_buckets=buckets))
+    eng.warmup()
+    t_warm = time.time()
+    eng.start()
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    tokens = [r.result(timeout=600) for r in reqs]
+    t_done = time.time()
+    launches = [flash_attention.launches, flash_attention_bwd.launches]
+    first = min(r.submit_wall + (r.first_token_ts - r.submit_ts)
+                for r in reqs)
+    prefills = sum(c for k, c in eng.metrics()["compiled_step_calls"].items()
+                   if k.startswith("prefill:"))
+    reserved = torch.cuda.memory_reserved() if device == "cuda" else 0
+    eng.shutdown()
+    return dict(tokens=tokens, launches=launches, prefills=prefills,
+                n_layer=cfg.n_layer, node_id=ctx.get_node_id(),
+                task_id=ctx.get_task_id(), pid=os.getpid(),
+                visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                card=(torch.cuda.get_device_name(0) if device == "cuda"
+                      else "cpu"),
+                entry_wall=t_entry, imports_s=t0 - t_entry,
+                engine_s=t_warm - t0, first_token_wall=first,
+                gen_s=t_done - t_warm, reserved=reserved,
+                end_wall=time.time())
+
+
+ray_tpu_torch.init()
+workflow.init(storage=conf["storage"])
+graph = dag.bind(gpu_generate,
+                 dag.bind(cpu_prompts, conf["vocab_size"],
+                          conf["prompt_lens"], conf["seed"]),
+                 conf["model"], conf["seed"], conf["buckets"],
+                 conf["max_new"], conf["device"])
+t0 = time.time()
+out = workflow.run(graph, workflow_id=conf["workflow_id"])
+run_s = time.time() - t0
+t1 = time.time()
+again = workflow.resume(conf["workflow_id"])
+resume_s = time.time() - t1
+meta = workflow.get_metadata(conf["workflow_id"])
+ray_tpu_torch.shutdown()
+print("CLUSTER_JOB " + json.dumps(dict(
+    out, run_s=run_s, resume_s=resume_s, resume_equal=again == out,
+    status=meta["status"], steps_checkpointed=meta["steps_checkpointed"])))
+'''
+
+
+class _CountingProvider:
+    """`FakeMultiNodeProvider` with each launch and termination stamped
+    (the autoscaler's decisions, as the phase reads them)."""
+
+    def __init__(self, cluster):
+        from ray_tpu_torch.autoscaler import FakeMultiNodeProvider
+
+        self._inner = FakeMultiNodeProvider(cluster)
+        self.launched, self.terminated = [], []
+
+    def create_node(self, node_type):
+        t0 = time.time()
+        inst = self._inner.create_node(node_type)
+        self.launched.append(dict(instance=inst, asked=t0,
+                                  registered=time.time()))
+        return inst
+
+    def terminate_node(self, instance):
+        t0 = time.time()
+        self._inner.terminate_node(instance)
+        self.terminated.append(dict(instance=instance, asked=t0,
+                                    done=time.time()))
+
+    def non_terminated_nodes(self):
+        return self._inner.non_terminated_nodes()
+
+
+def _node_alive(state, node_id):
+    """Whether `state.list_nodes()` shows the node alive, with its GPU."""
+    return any(n["NodeID"] == node_id and n["Alive"]
+               and n["Resources"].get("GPU") == 1.0
+               for n in state.list_nodes())
+
+
+def phase_cluster(gpt, model="gpt2_125m", buckets=GPT_BUCKETS,
+                  prompt_lens=GPT_PROMPT_LENS, max_new=32, seed=1,
+                  store_bytes=SERVE_STORE_BYTES, device="cuda"):
+    """The cluster tooling on the card (module docstring, phase 14): a
+    job submitted to a cluster whose head has no GPU runs a workflow
+    whose GPU step the autoscaler launches a GPU node for; the node
+    retires once idle. `gpt` holds the `gpt` engine phase's tokens and
+    top-2 gaps."""
+    from ray_tpu_torch._private.node import Cluster
+    from ray_tpu_torch.autoscaler import Autoscaler, NodeType
+    from ray_tpu_torch.job_submission import SUCCEEDED, JobSubmissionClient
+    from ray_tpu_torch.util import state
+    from ray_tpu_torch.util.timeline import timeline
+
+    card = card_line() if device == "cuda" else "cpu"
+    cfg = getattr(gpt_mod.GPTConfig, model)()
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    assert not _port_processes(), _port_processes()
+    free0 = _free_card_bytes(device)
+    shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
+    CLUSTER_DIR.mkdir()
+    script = CLUSTER_DIR / "job.py"
+    script.write_text(CLUSTER_JOB_SCRIPT)
+    conf = CLUSTER_DIR / "job.json"
+    conf.write_text(json.dumps(dict(
+        storage=str(CLUSTER_DIR / "wf"), workflow_id=CLUSTER_WORKFLOW_ID,
+        vocab_size=cfg.vocab_size, prompt_lens=list(prompt_lens),
+        seed=seed, model=model, buckets=list(buckets), max_new=max_new,
+        device=device)))
+    t_phase = time.perf_counter()
+    # explicit head resources: no GPU detection, the head has no GPU
+    cluster = Cluster(head_resources={"CPU": 2.0},
+                      object_store_memory=store_bytes)
+    autoscaler = None
+    watch_stop = threading.Event()
+    seen = dict(min_free=free0, alive_during=False)
+    try:
+        ray_tpu_torch.init(address=cluster.gcs_addr)
+        assert ray_tpu_torch.cluster_resources().get("GPU", 0) == 0
+        provider = _CountingProvider(cluster)
+        autoscaler = Autoscaler(
+            cluster.gcs_addr, provider,
+            [NodeType("gpu", {"CPU": 2.0, "GPU": 1.0})], max_workers=1,
+            idle_timeout_s=CLUSTER_IDLE_S,
+            update_interval_s=CLUSTER_UPDATE_S).start()
+        client = JobSubmissionClient()
+        t_submit = time.time()
+        job_id = client.submit_job(
+            entrypoint=f"{sys.executable} {script} {conf}")
+
+        def watch():
+            # the card's memory and the GPU node's state while the job runs
+            while not watch_stop.wait(0.1):
+                seen["min_free"] = min(seen["min_free"],
+                                       _free_card_bytes(device))
+                if provider.launched and not seen["alive_during"]:
+                    nid = provider.launched[0]["instance"].node_ids[0]
+                    seen["alive_during"] = _node_alive(state, nid)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        status = client.wait_until_finished(job_id,
+                                            timeout=CLUSTER_JOB_TIMEOUT_S)
+        t_job_end = time.time()
+        logs = client.get_job_logs(job_id)
+        assert status == SUCCEEDED, (status, logs[-6000:])
+        lines = [ln for ln in logs.splitlines()
+                 if ln.startswith("CLUSTER_JOB ")]
+        assert len(lines) == 1, logs[-6000:]
+        res = json.loads(lines[0].split(" ", 1)[1])
+
+        # the autoscaler launched one GPU node, and the step ran there
+        assert len(provider.launched) == 1, provider.launched
+        launch = provider.launched[0]
+        inst = launch["instance"]
+        assert inst.node_type == "gpu" and len(inst.node_ids) == 1
+        gpu_node = inst.node_ids[0]
+        assert res["node_id"] == gpu_node, (res["node_id"], gpu_node)
+        assert seen["alive_during"], "the GPU node never showed alive"
+        if device == "cuda":
+            assert res["visible"] not in (None, ""), res["visible"]
+            assert res["card"] == torch.cuda.get_device_name(0)
+        # GPT-2's tokens equal the in-process `gpt` phase's
+        assert all(len(t) == max_new for t in res["tokens"])
+        compared, ties = _near_tie_compare(res["tokens"], gpt["tokens"],
+                                           gpt["gaps"], "cluster")
+        fwd, bwd = res["launches"]
+        assert bwd == 0, bwd
+        if device == "cuda":
+            assert fwd == res["n_layer"] * res["prefills"] > 0, (
+                fwd, res["prefills"])
+        # the resume ran nothing: one finished task of each step
+        assert res["resume_equal"] and res["status"] == "SUCCEEDED", res
+        deadline = time.monotonic() + 20
+        while True:
+            gpu_tasks = state.list_tasks(name="gpu_generate")
+            cpu_tasks = state.list_tasks(name="cpu_prompts")
+            if [t["state"] for t in gpu_tasks] == ["FINISHED"] and \
+                    [t["state"] for t in cpu_tasks] == ["FINISHED"] or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        assert [t["state"] for t in gpu_tasks] == ["FINISHED"], gpu_tasks
+        assert [t["state"] for t in cpu_tasks] == ["FINISHED"], cpu_tasks
+        assert gpu_tasks[0]["task_id"] == res["task_id"]
+        # the timeline holds the GPU step's event, that task on that node
+        events = [e for e in timeline()
+                  if e["args"]["task_id"] == res["task_id"]]
+        assert len(events) == 1 and events[0]["name"] == "gpu_generate" \
+            and events[0]["ph"] == "X", events
+
+        # idle past the timeout: the autoscaler retires the node, and the
+        # card's memory comes back
+        deadline = time.monotonic() + 60
+        while not provider.terminated and time.monotonic() < deadline:
+            time.sleep(0.1)
+        assert provider.terminated, "the idle GPU node was never retired"
+        term = provider.terminated[0]
+        assert term["instance"].instance_id == inst.instance_id
+        deadline = time.monotonic() + 30
+        while _node_alive(state, gpu_node) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        assert not _node_alive(state, gpu_node)
+        assert any(n["NodeID"] == gpu_node and not n["Alive"]
+                   for n in state.list_nodes())
+        free_back, back_s = _wait_free(device, free0 - SERVE_MEM_SLACK, 60)
+        if device == "cuda":
+            assert free_back >= free0 - SERVE_MEM_SLACK, (free0, free_back)
+    finally:
+        watch_stop.set()
+        if autoscaler is not None:
+            autoscaler.stop()
+        ray_tpu_torch.shutdown()
+        cluster.shutdown()
+        shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
+    _assert_clean()
+    phase_s = time.perf_counter() - t_phase
+    row = dict(
+        submit_to_node_s=launch["registered"] - t_submit,
+        node_start_s=launch["registered"] - launch["asked"],
+        node_to_first_token_s=res["first_token_wall"] - launch["registered"],
+        step_imports_s=res["imports_s"], step_engine_s=res["engine_s"],
+        step_gen_s=res["gen_s"],
+        job_s=t_job_end - t_submit, workflow_run_s=res["run_s"],
+        resume_s=res["resume_s"],
+        idle_to_terminated_s=term["done"] - res["end_wall"],
+        terminate_s=term["done"] - term["asked"],
+        free_before=free0, free_min_during=seen["min_free"],
+        free_after=free_back, free_back_s=back_s,
+        worker_reserved=res["reserved"], launches=fwd,
+        prefills=res["prefills"], compared_tokens=compared,
+        near_ties=ties, phase_s=phase_s)
+    print(f"cluster: job {job_id} SUCCEEDED in {row['job_s']:.2f} s from "
+          f"the submit; the autoscaler launched 1 `gpu` node "
+          f"({{'CPU': 2, 'GPU': 1}}) {row['submit_to_node_s']:.2f} s after "
+          f"the submit (its raylet up in {row['node_start_s']:.2f} s); the "
+          f"GPU step's first token {row['node_to_first_token_s']:.2f} s "
+          f"after the node registered (the step: imports "
+          f"{row['step_imports_s']:.2f} s, weights + warm-up and capture "
+          f"{row['step_engine_s']:.2f} s, 8 requests x {max_new} tokens "
+          f"{row['step_gen_s']:.2f} s); workflow.run {row['workflow_run_s']:.2f}"
+          f" s, the resume {row['resume_s']:.3f} s (no task); flash launches"
+          f" in the GPU worker {fwd} = {res['n_layer']} x {res['prefills']} "
+          f"prefills; tokens equal to the `gpt` phase's: {compared} "
+          f"compared, {len(ties)} near-tie stop(s); the node retired "
+          f"{row['idle_to_terminated_s']:.2f} s after the step ended "
+          f"(idle timeout {CLUSTER_IDLE_S:.0f} s; the termination "
+          f"{row['terminate_s']:.2f} s); the card's free memory "
+          f"{free0 / 2**30:.2f} GiB before, {seen['min_free'] / 2**30:.2f} "
+          f"at its least during the job, {free_back / 2**30:.2f} after "
+          f"({back_s:.2f} s after the termination); no process or segment "
+          f"left; {phase_s:.1f} s in all (card: {card})")
     return row
 
 
@@ -3451,7 +3849,7 @@ BWD_DESIGN = (
 
 def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
                  spec, runtime, serve_row, train_dist, train_data, dag,
-                 ptxas):
+                 cluster, ptxas):
     """The `kernels` entries: every ported kernel with its numbers. The
     forward at the serving path's largest prefill shape (with the GPT-2
     run's launches per prefill bucket at that bucket's time), the
@@ -3464,7 +3862,8 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
     the GPU replica's, on both paths; `train_dist`: the `TorchTrainer`'s
     GPU worker's, both attempts; `train_data`: the Dataset-fed
     `TorchTrainer` GPU worker's; `dag`: the fused chain's executes;
-    `dag_actor`: the actor graph's GPU actor's)."""
+    `dag_actor`: the actor graph's GPU actor's; `cluster`: the GPU step's
+    worker on the autoscaled node)."""
     def at(table, shape):
         return next(r for r in table if r["shape"] == shape)
 
@@ -3513,6 +3912,7 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_train_data": train_data["fwd_launches"],
         "launches_dag": dag["fused"]["launches"],
         "launches_dag_actor": dag["actor"]["launches"],
+        "launches_cluster": cluster["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **_numbers(main_row),
         "at": MAIN_SHAPE,
@@ -3592,6 +3992,8 @@ def main() -> int:
     runtime = phase_runtime(gpt)
     # Serve: the GPT-2 engine phase's model from a GPU replica
     serve_row = phase_serve(gpt)
+    # the cluster phase's reference: the `gpt` phase's tokens and gaps
+    gpt_ref = dict(tokens=gpt["tokens"], gaps=gpt["gaps"])
     for row in (gpt, llama):  # the later phases' references, not results
         del row["tokens"], row["gaps"]
     # the distributed train plane: the `train` phase's model, weights and
@@ -3605,16 +4007,19 @@ def main() -> int:
     dag = phase_dag()
     # the soak: runtime, Data, train plane, chaos and ledger (on the CPU)
     soak = phase_soak()
+    # the cluster tooling: a submitted job's workflow step on a GPU node
+    # that the autoscaler launches for it and retires once idle
+    cluster = phase_cluster(gpt_ref)
 
     kernels = kernels_line(rows, bwd_rows, train, train_llama, train_long,
                            gpt, llama, spec, runtime, serve_row, train_dist,
-                           train_data, dag, ptxas)
+                           train_data, dag, cluster, ptxas)
     print(json.dumps({"build_s": build_s, "train": train,
                       "train_llama": train_llama, "train_long": train_long,
                       "engines": [gpt, llama], "engine_spec": spec,
                       "runtime": runtime, "serve": serve_row,
                       "train_dist": train_dist, "train_data": train_data,
-                      "dag": dag, "soak": soak}))
+                      "dag": dag, "soak": soak, "cluster": cluster}))
     print(json.dumps({"kernels": kernels}))
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
           f"{build_s:.1f} s of it")

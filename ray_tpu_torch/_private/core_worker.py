@@ -2891,20 +2891,27 @@ class CoreWorker:
 
         self._loop.call_soon_threadsafe(post)
 
-    def _execute_guarded(self, spec) -> dict:
+    def _execute_guarded(self, spec, done: Optional[dict] = None) -> dict:
         """execute_task plus a net for cancel interrupts that land in
         the gaps outside its own try block — a reply is ALWAYS produced
-        (a swallowed interrupt would strand the owner's future)."""
+        (a swallowed interrupt would strand the owner's future). With
+        `done`, the reply is stashed there under the task id before
+        this returns, so a caller that an interrupt reaches after the
+        return finds it instead of running the task again."""
         try:
-            return self.execute_task(spec)
+            reply = self.execute_task(spec)
         except _TaskCancelledInterrupt:
             if spec.task_id in self._cancel_requested:
-                return self._package_cancelled(spec)
-            try:
-                raise RayTaskError(
-                    "task interrupted by a stale cancellation")
-            except RayTaskError as e:
-                return self._package_error(spec, e)
+                reply = self._package_cancelled(spec)
+            else:
+                try:
+                    raise RayTaskError(
+                        "task interrupted by a stale cancellation")
+                except RayTaskError as e:
+                    reply = self._package_error(spec, e)
+        if done is not None:
+            done[spec.task_id] = reply
+        return reply
 
     def _execute_to_future(self, spec, fut):
         reply = self._execute_guarded(spec)
@@ -2919,23 +2926,26 @@ class CoreWorker:
         discard batchmates: completed results stand, the in-hand spec
         gets a cancelled reply only if it was the cancel target, and
         everything else resumes execution (a stale interrupt — its
-        target already finished — is simply consumed)."""
+        target already finished — is simply consumed). A spec runs at
+        most once: `_execute_guarded` stashes each reply in `done`
+        before it returns, and an interrupt that lands after that (the
+        JAX package runs the spec again there) finds the stash."""
         results = []
-        i = 0
-        while i < len(pairs):
-            spec, fut = pairs[i]
+        done: Dict[bytes, dict] = {}
+        while len(results) < len(pairs):
+            spec, fut = pairs[len(results)]
             try:
-                results.append((fut, self._execute_guarded(spec)))
-                i += 1
+                if spec.task_id not in done:
+                    self._execute_guarded(spec, done)
+                results.append((fut, done[spec.task_id]))
             except _TaskCancelledInterrupt:
-                if spec.task_id in self._cancel_requested:
-                    results.append((fut, self._package_cancelled(spec)))
-                    i += 1
-                # else: stale interrupt aimed at an already-finished
-                # batchmate; retry the in-hand spec. (The only
-                # double-execution window is the few bytecodes between
-                # _execute_guarded returning and append — acceptable
-                # for a best-effort cancel, same as reference.)
+                if spec.task_id not in done and \
+                        spec.task_id in self._cancel_requested:
+                    done[spec.task_id] = self._package_cancelled(spec)
+                # else: a stale interrupt aimed at an already-finished
+                # batchmate, or one that landed after this spec's reply
+                # was stashed (or appended): the loop goes on from the
+                # first spec without an appended reply
 
         def post():
             for fut, reply in results:

@@ -357,9 +357,21 @@ class ServeController:
                 self._router_wakes[name] = w
             return w
 
-    def _ring_for(self, name: str):
+    @staticmethod
+    def _request_tokens(st: _DeploymentState) -> Optional[int]:
+        """The longest prompt the deployment's replicas accept, from its
+        own config at deploy time (None: it serves no LLM). A deployment
+        class that serves prompts says so with a `max_request_tokens(
+        init_args, init_kwargs)` static method (`LLMDeployment`)."""
+        hook = getattr(st.func_or_class, "max_request_tokens", None)
+        if not callable(hook):
+            return None
+        return hook(st.init_args, st.init_kwargs)
+
+    def _ring_for(self, name: str, st: _DeploymentState):
         """The deployment's native segment, created on first use with
-        the controller-owned geometry (handles attach-only)."""
+        the controller-owned geometry (handles attach-only): request
+        slots sized for the longest prompt its model accepts."""
         with self._lock:
             ring = self._rings.get(name)
         if ring is not None:
@@ -367,7 +379,8 @@ class ServeController:
         ring = _dispatch.DispatchRing(
             _dispatch.domain_segment(name), table_cap=16,
             slots=_dispatch.ring_slots(),
-            slot_bytes=_dispatch.REQUEST_SLOT_BYTES)
+            slot_bytes=_dispatch.request_slot_bytes(
+                self._request_tokens(st)))
         with self._lock:
             existing = self._rings.setdefault(name, ring)
         if existing is not ring:
@@ -392,7 +405,7 @@ class ServeController:
             replicas = list(st.replicas)
         if _dispatch.native_available():
             try:
-                ring = self._ring_for(name)
+                ring = self._ring_for(name, st)
                 cookies = [_dispatch.replica_cookie(r) for r in replicas]
                 # geometry cap: replicas beyond the table serve via the
                 # Python path only (logged once per deployment by size)

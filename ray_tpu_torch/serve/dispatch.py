@@ -93,12 +93,34 @@ _FRAME_HDR = struct.Struct("<QQQQQIIII")  # trace,rid,deadline,enq,client,
 _LLM_REQ = struct.Struct("<II8s")  # max_new_tokens, n_prompt, job label
 _LLM_TOK = struct.Struct("<II")    # index, token
 
-# payload bytes of a request slot (the controller's domain geometry): one
-# serve.llm frame of a prompt of up to 2048 tokens, the longest serving
-# context of the port's model configs. The JAX controller's 1 KiB slots
-# hold prompts of at most 252 tokens and send longer ones down the
-# Python path (ERR_TOO_BIG).
-REQUEST_SLOT_BYTES = _LLM_REQ.size + 4 * 2048
+# payload bytes of a request slot of a deployment that serves no LLM: the
+# JAX controller's geometry for every deployment, whose slots hold a
+# serve.llm prompt of at most 252 tokens
+DEFAULT_SLOT_BYTES = 1024
+
+
+def request_slot_bytes(max_prompt_tokens: Optional[int] = None) -> int:
+    """Payload bytes of a domain's request slots (the controller's
+    geometry): one serve.llm frame of a prompt of `max_prompt_tokens`
+    tokens, the deployment's model's `max_seq_len`, so every prompt the
+    model accepts fits; `DEFAULT_SLOT_BYTES` for a deployment that
+    serves no LLM. A longer payload takes the Python path, counted in
+    `stats()["too_big"]`."""
+    if not max_prompt_tokens:
+        return DEFAULT_SLOT_BYTES
+    return max(DEFAULT_SLOT_BYTES,
+               _LLM_REQ.size + 4 * int(max_prompt_tokens))
+
+
+def domain_bytes(table_cap: int, slots: int, slot_bytes: int) -> int:
+    """Bytes of a domain segment as `rr_open` maps it (request_ring.cc):
+    a 512-byte header, then per replica a 64-byte table entry and a
+    128-byte ring control block, and per ring slot a 64-byte header and
+    the payload rounded up to 64 bytes; `slots` rounds up to a power of
+    two."""
+    slots = 1 << max(0, int(slots) - 1).bit_length()
+    payload = (int(slot_bytes) + 63) & ~63
+    return 512 + table_cap * 64 + table_cap * (128 + slots * (64 + payload))
 
 _STAT_KEYS = (
     "enqueued", "drained", "drain_batches", "full_rejects",

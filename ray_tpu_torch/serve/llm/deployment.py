@@ -20,11 +20,22 @@ gives a CUDA deployment's replicas one GPU each (`num_gpus=1`), held
 from spawn to death. `model_config` dicts keep the JAX meaning; a dtype
 may be named (``"bfloat16"``). `params` (the port's param dict) serves
 given weights instead of drawing them from `seed`.
+`max_request_tokens` tells the controller, at deploy time, the longest
+prompt the model accepts (its `max_seq_len`), so that the native
+ring's request slots are sized from the model.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
+
+# the `max_seq_len` of the config a replica builds, known here without
+# importing torch (the controller calls `LLMDeployment.max_request_tokens`
+# and never imports torch): each family's default (`GPTConfig`,
+# `LlamaConfig`), and that of the tiny config the engine builds when no
+# `model_config` is given
+DEFAULT_MAX_SEQ_LEN = {"gpt": 1024, "llama": 2048}
+TINY_MAX_SEQ_LEN = 128
 
 
 def _config(cls, fields: Dict[str, Any]):
@@ -89,6 +100,24 @@ class LLMDeployment:
             return cw.store if cw is not None else None
         except Exception:
             return None
+
+    @staticmethod
+    def max_request_tokens(init_args: tuple,
+                           init_kwargs: Dict[str, Any]) -> int:
+        """The longest prompt a replica built from these arguments
+        accepts: its model's `max_seq_len` (the controller sizes the
+        dispatch ring's request slots from it before any replica
+        runs)."""
+        import inspect
+
+        bound = inspect.signature(LLMDeployment.__init__).bind(
+            None, *init_args, **init_kwargs)
+        bound.apply_defaults()
+        cfg = bound.arguments["model_config"]
+        if not cfg:
+            return TINY_MAX_SEQ_LEN
+        family = "llama" if bound.arguments["model"] == "llama" else "gpt"
+        return int(cfg.get("max_seq_len", DEFAULT_MAX_SEQ_LEN[family]))
 
     # -- request path -----------------------------------------------------
 

@@ -12,10 +12,10 @@ One `SoakDriver.run()` is a miniature continuous-pretraining campaign:
     off.
   * Chaos plane — a seeded, timed `FaultPlan` schedule (`at=` grammar)
     scoped per role, exported per process under RAY_TPU_CHAOS_LOG.
-  * Control plane — the JAX package's `cluster` mode (a multi-raylet
-    cluster with the autoscaler replacing a killed raylet) needs the
-    autoscaler, which the port has not yet: it raises
-    `NotImplementedError` until slice S4f brings it (ROADMAP Queue 1).
+  * Control plane — in `cluster` mode a real multi-raylet cluster with
+    the autoscaler running; a timed raylet kill is replaced by a fresh
+    provider node while the controller walks training back to the last
+    gang-committed checkpoint.
   * Observability — RAY_TPU_TRACE=1 for the whole run; the recovery
     ledger measures MTTR per fault class from the merged StepStats
     shards (which survive worker death) and audits failure attribution,
@@ -32,8 +32,13 @@ report, not at the run's start, and the budget leaves out each restart's
 outage. A fresh torch worker takes seconds to reach its first step: a
 fault that fires before it leaves the ledger no pre-fault rate window,
 and a restart that ends near the budget's end leaves it no post-fault
-one. `first_report_s` in the result says how long the start took. The
-tests run `mode="local"` with two fault classes in under a minute.
+one. `first_report_s` in the result says how long the start took. In
+`cluster` mode the head's raylet, which the driver attaches to, arms no
+raylet-scoped fault, and the autoscaler starts at the gang's first
+report: a `kill@raylet` always takes a worker node that holds ranks, and
+the node that replaces it is the autoscaler's. The tests run
+`mode="local"` with two fault classes in under a minute, and a short
+`mode="cluster"` soak whose raylet kill an autoscaled node replaces.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import os
 import random
 import shutil
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -69,7 +74,7 @@ _FAULT_TEMPLATES = {
 @dataclasses.dataclass
 class SoakConfig:
     budget_s: float = 30.0
-    mode: str = "local"                  # "cluster" raises (S4f)
+    mode: str = "local"                  # "local" | "cluster"
     seed: int = 0
     num_workers: int = 2
     fault_classes: Tuple[str, ...] = ("ckpt_fail@train",
@@ -103,6 +108,9 @@ class SoakConfig:
     rate_window: int = 6
     # environment
     num_cpus: int = 8                    # local mode logical CPUs
+    cluster_nodes: int = 2               # cluster mode worker nodes
+    cpus_per_node: float = 4.0
+    autoscaler_interval_s: float = 1.0
     workdir: Optional[str] = None        # default: mkdtemp
     keep_workdir: bool = False
 
@@ -247,12 +255,6 @@ class SoakDriver:
         self.cfg = config or SoakConfig()
         if self.cfg.mode not in ("local", "cluster"):
             raise ValueError(f"unknown soak mode {self.cfg.mode!r}")
-        if self.cfg.mode == "cluster":
-            # the JAX package's ray_tpu/autoscaler: not ported yet
-            raise NotImplementedError(
-                "ray_tpu_torch: the soak's cluster mode needs the "
-                "autoscaler (the JAX package's autoscaler/), which comes "
-                "with slice S4f of the port (ROADMAP Queue 1)")
 
     # -- seeded timed schedule ------------------------------------------
 
@@ -343,9 +345,38 @@ class SoakDriver:
         from ray_tpu_torch.soak.ledger import RecoveryLedger
 
         cfg = self.cfg
+        cluster = None
+        autoscaler = None
+        provider = None
         try:
-            ray_tpu_torch.init(num_cpus=cfg.num_cpus,
-                               object_store_memory=256 * 1024 * 1024)
+            if cfg.mode == "cluster":
+                from ray_tpu_torch._private.node import Cluster
+                from ray_tpu_torch.autoscaler import (Autoscaler,
+                                                      FakeMultiNodeProvider,
+                                                      NodeType)
+
+                # head too small for the gang: ranks land on the worker
+                # nodes, so a timed raylet kill hits a gang member. The
+                # GCS arms its faults; the head's raylet arms none
+                cluster = Cluster(object_store_memory=256 * 1024 * 1024)
+                chaos = os.environ.pop(_fi.ENV_VAR)
+                try:
+                    cluster.add_node({"CPU": 1.0})
+                finally:
+                    os.environ[_fi.ENV_VAR] = chaos
+                for _ in range(cfg.cluster_nodes):
+                    cluster.add_node({"CPU": cfg.cpus_per_node})
+                ray_tpu_torch.init(address=cluster.gcs_addr)
+                provider = FakeMultiNodeProvider(cluster)
+                autoscaler = Autoscaler(
+                    cluster.gcs_addr, provider,
+                    [NodeType("soak", {"CPU": cfg.cpus_per_node})],
+                    max_workers=cfg.cluster_nodes + 4,
+                    idle_timeout_s=10 * cfg.budget_s,
+                    update_interval_s=cfg.autoscaler_interval_s)
+            else:
+                ray_tpu_torch.init(num_cpus=cfg.num_cpus,
+                                   object_store_memory=256 * 1024 * 1024)
 
             ds = rt_data.range(cfg.rows, parallelism=cfg.num_blocks)
             shards = StaticShards(ds, cfg.num_workers)
@@ -354,14 +385,28 @@ class SoakDriver:
 
             ledger = RecoveryLedger(rate_threshold=cfg.rate_threshold,
                                     rate_window=cfg.rate_window)
+            # the autoscaler starts with the soak's clock, once the gang
+            # is placed: the demand of the blocks' tasks, or of the gang's
+            # group before its node reports free CPUs, would launch a
+            # node that a raylet kill could take instead of the ranks'
             result = self._drive_training(
                 shards, expected_ids, ledger, storage, stop_file,
-                epoch_file)
+                epoch_file,
+                on_first_report=autoscaler and autoscaler.start)
+            if provider is not None:
+                # nodes the autoscaler launched (it retires none within
+                # the run: its idle timeout is ten budgets)
+                result["autoscaled_nodes"] = len(
+                    provider.non_terminated_nodes())
         finally:
+            if autoscaler is not None:
+                autoscaler.stop()
             try:
                 ray_tpu_torch.shutdown()
             except Exception:  # noqa: BLE001 — teardown best-effort
                 pass
+            if cluster is not None:
+                cluster.shutdown()
 
         # MTTR source: the flight recorder's merged shards — written by
         # every (possibly dead) worker process under RAY_TPU_TRACE
@@ -381,7 +426,9 @@ class SoakDriver:
     def _drive_training(self, shards: "StaticShards",
                         expected_ids: List[np.ndarray],
                         ledger, storage: str, stop_file: str,
-                        epoch_file: str) -> Dict[str, Any]:
+                        epoch_file: str,
+                        on_first_report: Optional[Callable[[], Any]] = None
+                        ) -> Dict[str, Any]:
         """The controller loop: mirrors DataParallelTrainer's retry
         loop, instrumented with ledger hooks (failure/commit/restore
         timestamps) and the per-report watermark audit. The gang's first
@@ -479,6 +526,8 @@ class SoakDriver:
                         with open(tmp, "w") as f:
                             f.write(repr(now))
                         os.replace(tmp, epoch_file)
+                        if on_first_report is not None:
+                            on_first_report()
                     reports_seen += 1
                     audit(results)
                     lead = min(results, key=lambda r: r["world_rank"])

@@ -13,7 +13,9 @@ see the card), and the distributed train plane (a one-rank NCCL
 `platform="cuda"` worker without a GPU refused), and Data and the
 compiled DAG on the card (a fused `torch_stage` chain's held results, a
 capture failure that raises, a CUDA tensor across a channel from a GPU
-actor, a `TorchTrainer` GPU worker on a `streaming_split` shard).
+actor, a `TorchTrainer` GPU worker on a `streaming_split` shard), and
+the autoscaler (a GPU node launched for a num_gpus=1 task and retired
+once idle, the card's memory back).
 
 Every test here needs an NVIDIA GPU and `nvcc` and skips without them.
 On a machine with a card (and no JAX), run them with
@@ -1176,3 +1178,95 @@ def test_trainer_gpu_worker_consumes_a_streaming_split_shard(runtime,
     assert m["visible"] == "0"
     assert sorted(m["ids"]) == list(range(256))
     assert m["total"] == 3 * sum(range(256))
+
+
+# -- the autoscaler on the card -------------------------------------------
+
+AUTOSCALED_GPU_SCRIPT = r'''
+import json, time
+import torch
+import ray_tpu_torch
+from ray_tpu_torch._private.node import Cluster
+from ray_tpu_torch.autoscaler import (Autoscaler, FakeMultiNodeProvider,
+                                      NodeType)
+from ray_tpu_torch.util import state
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def on_the_card():
+    import os
+    from ray_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_attention_plain)
+    q, k, v = (torch.randn(1, 128, 2, 64, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    want, _lse = flash_attention_plain(q, k, v, causal=True)
+    err = float((flash_attention(q, k, v, causal=True).float()
+                 - want.float()).abs().max())
+    return dict(node=ray_tpu_torch.get_runtime_context().get_node_id(),
+                visible=os.environ.get("CUDA_VISIBLE_DEVICES"), err=err,
+                launches=flash_attention.launches)
+
+
+torch.cuda.init()
+free0 = torch.cuda.mem_get_info()[0]
+cluster = Cluster(head_resources={"CPU": 1.0},
+                  object_store_memory=256 << 20)
+out = {}
+try:
+    ray_tpu_torch.init(address=cluster.gcs_addr)
+    out["head_gpus"] = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
+    provider = FakeMultiNodeProvider(cluster)
+    scaler = Autoscaler(cluster.gcs_addr, provider,
+                        [NodeType("gpu", {"CPU": 1.0, "GPU": 1.0})],
+                        max_workers=1, idle_timeout_s=3.0,
+                        update_interval_s=0.5).start()
+    res = ray_tpu_torch.get(on_the_card.remote(), timeout=300)
+    (inst,) = provider.non_terminated_nodes()
+    out.update(res, gpu_node=inst.node_ids[0])
+    deadline = time.monotonic() + 60
+    while provider.non_terminated_nodes() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    out["retired"] = not provider.non_terminated_nodes()
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and any(
+            n["NodeID"] == inst.node_ids[0] and n["Alive"]
+            for n in state.list_nodes()):
+        time.sleep(0.2)
+    out["dead"] = any(n["NodeID"] == inst.node_ids[0] and not n["Alive"]
+                      for n in state.list_nodes())
+    deadline = time.monotonic() + 60
+    while torch.cuda.mem_get_info()[0] < free0 - (256 << 20) and \
+            time.monotonic() < deadline:
+        time.sleep(0.2)
+    out["memory_back"] = torch.cuda.mem_get_info()[0] >= free0 - (256 << 20)
+    scaler.stop()
+finally:
+    ray_tpu_torch.shutdown()
+    cluster.shutdown()
+print(json.dumps(out))
+'''
+
+
+def test_autoscaled_gpu_node_runs_a_gpu_task_and_retires_when_idle():
+    """A head with no GPU, and the autoscaler with a `{"GPU": 1}` node
+    type: a num_gpus=1 task makes it launch a GPU node, whose worker runs
+    the forward kernel on the card; once idle the node is terminated,
+    shows dead, and the card's memory comes back."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run(
+        [sys.executable, "-c", AUTOSCALED_GPU_SCRIPT], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root)), capture_output=True,
+        text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["head_gpus"] == 0.0
+    assert got["node"] == got["gpu_node"] and got["visible"] == "0"
+    assert got["err"] < 2e-2 and got["launches"] >= 1
+    assert got["retired"] and got["dead"] and got["memory_back"]

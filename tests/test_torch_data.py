@@ -640,26 +640,13 @@ def test_optimize_does_not_mutate_shared_plan():
     assert ds.count() == 500
 
 
-def summarize_tasks():
-    """{task name: {state: count}} from the GCS task table, as the JAX
-    package's `ray_tpu.util.state.summarize_tasks` (not ported yet)."""
-    from ray_tpu_torch._private.worker_api import _require_state
-
-    cw = _require_state().core_worker
-    raw = cw._run_sync(cw.gcs.call("list_task_events", {
-        "limit": 100_000, "name": None, "state": None}))
-    out = {}
-    for rec in raw:
-        per = out.setdefault(rec["name"], {})
-        per[rec["state"]] = per.get(rec["state"], 0) + 1
-    return out
-
-
 def test_read_map_fusion_single_task_wave():
     """VERDICT r5 item 8: a read->map->map pipeline executes as ONE task
     wave — intermediate blocks never round-trip through the store
     (reference `rules/zero_copy_map_fusion.py` + read fusion)."""
     import time as time_mod
+
+    from ray_tpu_torch.util.state import summarize_tasks
 
     def quiesced_summary():
         # task events flush to the GCS asynchronously; wait until the

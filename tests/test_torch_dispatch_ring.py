@@ -592,19 +592,20 @@ def test_jax_and_port_deployments_of_one_name_use_different_segments(
 
 
 def test_request_slots_hold_a_long_prompt_frame(native_lib):
-    """A repair of the port: the controller's request slots hold a
-    serve.llm frame of a 900-token prompt (GPT-2's longest smoke prompt;
-    up to 2048 tokens), which the JAX controller's 1 KiB slots reject
-    (ERR_TOO_BIG: that request silently takes the Python path)."""
+    """A repair of the port: the request slots of a GPT-2 deployment
+    (`max_seq_len` 1024) hold a serve.llm frame of a 900-token prompt
+    (GPT-2's longest smoke prompt), which the JAX controller's 1 KiB
+    slots reject (ERR_TOO_BIG: that request takes the Python path)."""
     from ray_tpu.serve import dispatch as jax_dispatch
 
     frame = _dispatch.encode_llm_request(list(range(1, 901)), 32, "job")
     assert frame == jax_dispatch.encode_llm_request(
         list(range(1, 901)), 32, "job")
-    assert len(_dispatch.encode_llm_request([1] * 2048, 1, "j")) == \
-        _dispatch.REQUEST_SLOT_BYTES
+    slot_bytes = _dispatch.request_slot_bytes(1024)
+    assert len(_dispatch.encode_llm_request([1] * 1024, 1, "j")) == \
+        slot_bytes
     mine = _dispatch.DispatchRing(_fresh_segment(), table_cap=2, slots=64,
-                                  slot_bytes=_dispatch.REQUEST_SLOT_BYTES)
+                                  slot_bytes=slot_bytes)
     theirs = jax_dispatch.DispatchRing(
         f"/rtds.t{os.getpid():x}{os.urandom(3).hex()}", table_cap=2,
         slots=64, slot_bytes=1024)  # the JAX controller's geometry
@@ -621,3 +622,78 @@ def test_request_slots_hold_a_long_prompt_frame(native_lib):
     finally:
         mine.close(unlink=True)
         theirs.close(unlink=True)
+
+
+@pytest.mark.parametrize("max_seq_len", [64, 1024])
+def test_domain_slots_are_sized_from_the_models_max_seq_len(
+        native_lib, max_seq_len, monkeypatch):
+    """F7's remainder: the controller creates a deployment's domain, at
+    deploy time, with request slots sized from its model's `max_seq_len`
+    (a tiny config's 64, GPT-2's 1024): the segment's bytes are the
+    formula's, a prompt of `max_seq_len` tokens goes over the ring
+    (`too_big` stays 0), and a frame past the slot is rejected and
+    counted. A deployment that serves no LLM keeps 1 KiB slots."""
+    from types import SimpleNamespace
+
+    from ray_tpu_torch.serve.controller import ServeController
+    from ray_tpu_torch.serve.llm.deployment import LLMDeployment
+
+    monkeypatch.delenv(_dispatch.ENV_SLOTS, raising=False)
+    ctrl = ServeController()
+    name = f"llm-{os.urandom(3).hex()}"
+    st = SimpleNamespace(func_or_class=LLMDeployment, init_args=(), init_kwargs={
+        "model": "gpt", "model_config": {"max_seq_len": max_seq_len},
+        "device": "cpu"})
+    assert ctrl._request_tokens(st) == max_seq_len
+    ring = ctrl._ring_for(name, st)
+    try:
+        want_slot = max(1024, 16 + 4 * max_seq_len)
+        assert _dispatch.request_slot_bytes(max_seq_len) == want_slot
+        payload = (want_slot + 63) // 64 * 64
+        assert ring.slot_bytes == payload
+        want = 512 + 16 * 64 + 16 * (128 + 1024 * (64 + payload))
+        assert _dispatch.domain_bytes(16, 1024, want_slot) == want
+        seg = _dispatch.domain_segment(name)
+        assert os.stat("/dev/shm" + seg).st_size == want
+        if max_seq_len == 1024:
+            assert round(want / 2**20, 1) == 66.0  # 130.0 MiB at 2048
+
+        ring.publish(1, [7])
+        prompt = list(range(1, max_seq_len + 1))
+        ring.enqueue(_dispatch.encode_llm_request(prompt, 8, "job"))
+        (got,) = ring.drain(ring.ring_of(7))
+        assert _dispatch.decode_llm_request(got.payload) == (
+            prompt, 8, "job")
+        assert ring.stats()["too_big"] == 0
+        over = [1] * ((payload - 16) // 4 + 1)
+        with pytest.raises(_dispatch.DispatchRejected) as e:
+            ring.enqueue(_dispatch.encode_llm_request(over, 8, "job"))
+        assert e.value.code == _dispatch.ERR_TOO_BIG
+        assert ring.stats()["too_big"] == 1
+    finally:
+        ring.close(unlink=True)
+    plain = SimpleNamespace(func_or_class=object, init_args=(),
+                            init_kwargs={})
+    assert ctrl._request_tokens(plain) is None
+    assert _dispatch.request_slot_bytes(None) == 1024
+
+
+def test_default_max_seq_len_matches_the_model_configs():
+    """`LLMDeployment.max_request_tokens` reads each family's default
+    without importing torch; the defaults are the configs'."""
+    from ray_tpu_torch.models.gpt import GPTConfig
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.serve.llm.deployment import (DEFAULT_MAX_SEQ_LEN,
+                                                    TINY_MAX_SEQ_LEN,
+                                                    LLMDeployment)
+
+    assert DEFAULT_MAX_SEQ_LEN == {"gpt": GPTConfig().max_seq_len,
+                                   "llama": LlamaConfig().max_seq_len}
+    assert TINY_MAX_SEQ_LEN == GPTConfig.tiny().max_seq_len == \
+        LlamaConfig.tiny().max_seq_len
+    cfg = {"n_layer": 2}
+    assert LLMDeployment.max_request_tokens(("gpt", cfg), {}) == 1024
+    assert LLMDeployment.max_request_tokens((), {"model_config": cfg}) \
+        == 2048
+    # no model_config: the engine builds the family's tiny config
+    assert LLMDeployment.max_request_tokens(("gpt",), {}) == 128

@@ -214,3 +214,35 @@ def test_data_dag_experimental_and_soak_leave_torch_unimported():
     assert "torch" not in loaded
     assert not [m for m in loaded if _forbidden(m)]
     assert set(mods) <= set(loaded)
+
+
+def test_autoscaler_util_jobs_and_workflow_leave_torch_unimported():
+    """`import ray_tpu_torch.autoscaler`, `.util` (every module),
+    `.job_submission` and `.workflow` (and their modules) import no
+    torch: the cluster tooling runs in operators' drivers, the GCS's
+    host and a job's supervisor, none of which needs the card. The
+    15 modules of the cluster-tooling slice are all among them."""
+    mods = sorted(m for m in _modules() if m.split(".")[:2] in (
+        ["ray_tpu_torch", "autoscaler"], ["ray_tpu_torch", "util"],
+        ["ray_tpu_torch", "job_submission"], ["ray_tpu_torch", "workflow"]))
+    slice_mods = {f"ray_tpu_torch.util.{m}" for m in (
+        "state", "timeline", "actor_pool", "queue", "multiprocessing",
+        "tsdb", "slo")} | {
+        "ray_tpu_torch.util", "ray_tpu_torch.autoscaler",
+        "ray_tpu_torch.autoscaler.node_provider",
+        "ray_tpu_torch.autoscaler.autoscaler",
+        "ray_tpu_torch.autoscaler.gcp_tpu", "ray_tpu_torch.job_submission",
+        "ray_tpu_torch.workflow", "ray_tpu_torch.workflow.execution"}
+    assert len(slice_mods) == 15 and slice_mods <= set(mods)
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "torch" not in loaded
+    assert not [m for m in loaded if _forbidden(m)]
+    assert set(mods) <= set(loaded)

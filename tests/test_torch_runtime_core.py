@@ -631,3 +631,62 @@ def test_one_script_gives_equal_results_on_both_packages():
     assert results["ray_tpu"]["fanout"] == [i * i for i in range(16)]
     assert results["ray_tpu"]["error"] == ["RayTaskError", True]
     assert results["ray_tpu_torch"] == results["ray_tpu"]
+
+
+# ---------------------------------------------------------------------------
+# a stale cancel interrupt after a batched actor task finished
+# ---------------------------------------------------------------------------
+
+
+def _batch_runs_with_a_late_interrupt(pkg: str):
+    """Run a batch of three actor task specs through `pkg`'s
+    `CoreWorker._execute_batch` on a stand-in worker whose first
+    `_execute_guarded` call raises `_TaskCancelledInterrupt` right after
+    the real one returned: a stale cancel landing between the reply and
+    its append. Returns {task id: executions} and the posted replies."""
+    import collections
+    import concurrent.futures
+    import importlib
+    from types import SimpleNamespace
+
+    cw_mod = importlib.import_module(pkg + "._private.core_worker")
+    runs = collections.Counter()
+    posted = []
+
+    def execute_task(spec):
+        runs[spec.task_id] += 1
+        return {"value": spec.task_id}
+
+    worker = SimpleNamespace(
+        _cancel_requested={}, execute_task=execute_task,
+        _package_cancelled=lambda spec: {"cancelled": spec.task_id},
+        _package_error=lambda spec, e: {"error": str(e)},
+        _loop=SimpleNamespace(call_soon_threadsafe=posted.append))
+    real = cw_mod.CoreWorker._execute_guarded
+    interrupted = []
+
+    def guarded(spec, *args):
+        reply = real(worker, spec, *args)
+        if not interrupted:
+            interrupted.append(spec.task_id)
+            raise cw_mod._TaskCancelledInterrupt()
+        return reply
+
+    worker._execute_guarded = guarded
+    specs = [SimpleNamespace(task_id=bytes([i]) * 4) for i in range(3)]
+    futs = [concurrent.futures.Future() for _ in specs]
+    cw_mod.CoreWorker._execute_batch(worker, list(zip(specs, futs)))
+    for post in posted:
+        post()
+    return dict(runs), [f.result(timeout=0) for f in futs]
+
+
+def test_stale_cancel_after_a_batched_task_runs_it_once():
+    """A repair of the port: the interrupt finds the stashed reply and
+    the task runs once. The JAX package runs it a second time."""
+    runs, replies = _batch_runs_with_a_late_interrupt("ray_tpu_torch")
+    assert list(runs.values()) == [1, 1, 1]
+    assert replies == [{"value": bytes([i]) * 4} for i in range(3)]
+    jax_runs, jax_replies = _batch_runs_with_a_late_interrupt("ray_tpu")
+    assert list(jax_runs.values()) == [2, 1, 1]
+    assert jax_replies == replies

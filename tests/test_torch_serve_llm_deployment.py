@@ -154,7 +154,9 @@ def test_build_app_python_path_gives_jax_engine_tokens(llm):
 def test_build_app_native_ring_gives_jax_engine_tokens(llm, monkeypatch):
     handle, want = llm
     ring = _ring("llm")
-    assert ring.slot_bytes >= dispatch.REQUEST_SLOT_BYTES
+    # sized from the tiny model's max_seq_len (128): the JAX geometry's
+    # 1 KiB holds it
+    assert ring.slot_bytes == dispatch.request_slot_bytes(128) == 1024
     before = ring.stats()
     monkeypatch.setenv(dispatch.ENV_FLAG, "1")
     gens, got = _streams(handle)

@@ -1,7 +1,8 @@
 """The port's soak (`ray_tpu_torch.soak`): the scenarios of
 `tests/test_soak.py`, then the port held to the JAX package: the same
 fault schedules for seeds 0-9, the same ledger reports on the same
-records, and the cluster mode deferred until the autoscaler is ported.
+records, and a short cluster-mode soak whose raylet kill a node launched
+by the port's autoscaler replaces.
 
 Elastic pretraining soak: recovery ledger + budgeted soak driver.
 
@@ -506,10 +507,41 @@ def test_ledger_report_matches_jax(tmp_path):
                                                          sort_keys=True)
 
 
-def test_cluster_mode_is_deferred():
-    """The JAX package's cluster mode needs the autoscaler, which the
-    port has not yet: it raises, naming the slice that brings it."""
-    with pytest.raises(NotImplementedError, match="autoscaler.*S4f"):
-        SoakDriver(SoakConfig(mode="cluster"))
-    # the JAX package accepts the same config
-    JaxDriver(JaxConfig(mode="cluster"))
+def test_soak_smoke_cluster(tmp_path):
+    """A short cluster-mode soak: a head with one CPU, one two-CPU worker
+    node holding the gang, and the autoscaler over a
+    `FakeMultiNodeProvider`. The timed `kill@raylet` takes the gang's
+    node; the controller walks training back to the last gang commit
+    while the autoscaler launches a node for the pending gang, and the
+    ledger is clean. The config's cluster fields are the JAX package's."""
+    import dataclasses
+
+    cluster_fields = ("cluster_nodes", "cpus_per_node",
+                      "autoscaler_interval_s")
+    defaults = {f.name: f.default for f in dataclasses.fields(SoakConfig)}
+    jax_defaults = {f.name: f.default
+                    for f in dataclasses.fields(JaxConfig)}
+    assert {k: defaults[k] for k in cluster_fields} == \
+        {k: jax_defaults[k] for k in cluster_fields}
+    cfg = SoakConfig(
+        budget_s=20.0, mode="cluster", seed=0,
+        fault_classes=("kill@raylet",), cluster_nodes=1,
+        cpus_per_node=2.0, autoscaler_interval_s=0.5,
+        workdir=str(tmp_path / "soak"), keep_workdir=True)
+    res = SoakDriver(cfg).run()
+    led = res["ledger"]
+    assert res["mode"] == "cluster"
+    assert led["faults_injected"] == 1
+    assert set(led["mttr_by_class"]) == {"kill@raylet"}
+    assert led["recovered_count"] == 1
+    assert led["non_injected_failures"] == []
+    assert led["failures_observed"] == led["injected_failures"] >= 1
+    assert led["restores"] >= 1 and led["resume_mismatches"] == []
+    assert res["watermark_errors"] == [] and res["watermark_checks"] > 0
+    assert res["autoscaled_nodes"] >= 1
+    raylet_fired = []
+    for name in res["chaos_artifacts"]:
+        art = json.loads((tmp_path / "soak" / "chaos" / name).read_text())
+        if art["role"] == "raylet":
+            raylet_fired += [f["fault"] for f in art["timed_fired"]]
+    assert raylet_fired == ["kill"]
