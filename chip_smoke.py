@@ -218,7 +218,36 @@ a non-zero exit) on any failed check:
    Prints the submit to the node's registration, the registration to
    the first token, the job's and the resume's seconds, idle to
    termination, and the card's free memory before, during and after;
-15. the `kernels` JSON line (every ported kernel with its numbers), the
+15. operator: the operator surface, every verb a subprocess `python -m
+   ray_tpu_torch ...`. `start --head` with no `--resources` (the head
+   detects the card: `GPU 1.0`), a CPU-only node joined by the command
+   line `autoscaler/gcp_tpu.bootstrap_script` writes (plus `--resources
+   '{"CPU": 2}'`, its own state file), `status` (2 alive nodes). Then
+   `client-server` and a `client://` driver in its own process: a 64 MiB
+   CUDA tensor put and got back equal (the client server relays it on
+   the host), an actor, and a num_gpus=1 task that runs
+   `flash_attention_fwd` at GPT-2's prefill shape (B=1, T=1024, 12
+   heads, d=64, bf16) against its plain version (the `kernels` phase's
+   tolerance; one launch). Then `serve-deploy` of a YAML config with two
+   applications: GPT-2 125M (phase 6's seed, buckets, every bucket a
+   graph) on a num_gpus=1 replica and a plain deployment on /echo; a
+   driver that joins by address streams phase 6's 8 prompts through
+   `get_deployment_handle("llm")` (tokens equal phase 6's under the
+   near-tie rule, n_layer forward launches per prefill in the replica,
+   counted from 0 just before), then HTTP through the port's proxy: a
+   POST to /echo (200, JSON) and an unknown route (404). Then
+   `dashboard` in its own process: `/` and all 16 `/api/*` routes
+   answer 200 and JSON (the node with its GPU, the replica ALIVE, its
+   `kv_pages_total`, the 8 requests); `list actors`, `summary`,
+   `memory`, `timeline`, `stack --json` (the GCS, both raylets and the
+   CLI, none unreachable), `alerts`, `top` (the replica's KV pages) and
+   `job submit --wait`; last `serve shutdown`, SIGTERM to the dashboard
+   and the client server, `stop` for both nodes. Checks also: every verb
+   exits 0, no process of the session or segment is left, and the card's
+   free memory comes back to within 256 MiB. Prints the head's start,
+   the join, the client's put, get and GPU task, the deploy to the
+   first token, tok/s, each dashboard route's ms and each verb's s;
+16. the `kernels` JSON line (every ported kernel with its numbers), the
    card line, and last the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -1711,12 +1740,13 @@ def _checksum(t):
     return [int(w.sum()), int((w * idx).sum())]
 
 
-def _port_processes():
+def _port_processes(marks=(b"ray_tpu_torch._private.",)):
     """Live processes of the port's runtime on this machine (GCS, raylet,
-    workers: `-m ray_tpu_torch._private.*`), zombies excluded."""
+    workers: `-m ray_tpu_torch._private.*`), or those whose command line
+    holds one of `marks`, this one and zombies excluded."""
     live = []
     for entry in os.listdir("/proc"):
-        if not entry.isdigit():
+        if not entry.isdigit() or int(entry) == os.getpid():
             continue
         try:
             with open(f"/proc/{entry}/cmdline", "rb") as f:
@@ -1725,7 +1755,7 @@ def _port_processes():
                 state = f.read().rsplit(")", 1)[1].split()[0]
         except OSError:
             continue
-        if state != "Z" and b"ray_tpu_torch._private." in cmd:
+        if state != "Z" and any(m in cmd for m in marks):
             live.append(int(entry))
     return live
 
@@ -2665,9 +2695,19 @@ def _dist_train_worker(config):
             if step == TRAIN_DIST_K1_STEPS and resume is None:
                 # the rank dies on its first attempt, after its step-4
                 # report returned (the gang committed that checkpoint)
-                # and once the controller has taken step 6's report
+                # and once the controller holds step 6's report. An empty
+                # queue only says that the worker's poll took it: the
+                # poll's reply may not have left yet, and the death would
+                # lose it. The controller polls again only after that
+                # reply came, so wait for its next poll to block on the
+                # queue.
                 sess = session_mod.get_session()
-                while not sess.result_queue.empty():
+                deadline = time.monotonic() + 120.0
+                while not sess.result_queue.empty() or \
+                        not sess.result_queue.not_empty._waiters:
+                    assert time.monotonic() < deadline, \
+                        "train_dist: the controller did not poll again " \
+                        "after step 6's report"
                     time.sleep(0.005)
                 with open(os.path.join(train.get_context().get_trial_dir(),
                                        "killed_at"), "w") as f:
@@ -3823,6 +3863,563 @@ def phase_cluster(gpt, model="gpt2_125m", buckets=GPT_BUCKETS,
     return row
 
 
+OPERATOR_DIR = Path(__file__).resolve().parent / "smoke_operator"
+OPERATOR_PUT_BYTES = 64 << 20        # the client's CUDA tensor
+OPERATOR_QKV = (1, 1024, 12, 64)     # the client task's kernel: GPT-2's
+                                     # prefill shape (B, T, H, D), bf16
+OPERATOR_VERB_TIMEOUT_S = 600        # any one verb; `serve-deploy` waits
+                                     # for nothing but the controller
+OPERATOR_READY_TIMEOUT_S = 120       # a long-running verb's ready line
+OPERATOR_ROUTES = (
+    "/", "/api/nodes", "/api/actors", "/api/tasks", "/api/objects",
+    "/api/task_summary", "/api/timeline", "/api/cluster_resources",
+    "/api/cluster_load", "/api/jobs", "/api/events", "/api/steps",
+    "/api/serve_llm", "/api/timeseries", "/api/alerts", "/api/requests",
+    "/api/recovery")
+
+# The `client://` driver (OPERATOR_DIR/client_driver.py): a 64 MiB CUDA
+# tensor put and got back, an actor, and a num_gpus=1 task that holds the
+# forward kernel against its plain version; one JSON line last.
+OPERATOR_CLIENT_SCRIPT = r'''
+import json, os, sys, time
+
+import torch
+
+import ray_tpu_torch
+
+addr, conf = sys.argv[1], json.loads(sys.argv[2])
+device = conf["device"]
+
+
+@ray_tpu_torch.remote
+class Counter:
+    def __init__(self):
+        self.n = 0
+
+    def add(self, k):
+        self.n += k
+        return self.n
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def flash_task(shape, seed, device):
+    """The forward kernel at `shape` (bf16, causal) against its plain
+    version in a GPU worker; the launch count is 0 just before the
+    kernel's call and read just after it."""
+    import torch
+
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_attention_plain)
+
+    if device == "cuda":
+        _build.load("flash_attention_fwd")  # the smoke's build, no nvcc
+    b, t, h, d = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=device)
+               .to(torch.bfloat16) for _ in range(3))
+    with torch.inference_mode():
+        flash_attention.launches = 0
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        launches = flash_attention.launches
+        ref, ref_lse = flash_attention_plain(q, k, v, causal=True)
+    return dict(err=float((out.float() - ref.float()).abs().max()),
+                lse_err=float((lse - ref_lse).abs().max()),
+                finite=bool(torch.isfinite(out.float()).all()),
+                launches=launches,
+                visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                card=(torch.cuda.get_device_name(0) if device == "cuda"
+                      else "cpu"))
+
+
+t0 = time.perf_counter()
+ray_tpu_torch.init(address=f"client://{addr}")
+connect_s = time.perf_counter() - t0
+gen = torch.Generator(device=device).manual_seed(conf["seed"])
+x = torch.randn(conf["put_bytes"] // 4, generator=gen, device=device)
+t1 = time.perf_counter()
+ref = ray_tpu_torch.put(x)
+put_s = time.perf_counter() - t1
+back = ray_tpu_torch.get(ref)
+get_s = time.perf_counter() - t1 - put_s
+same = back.device.type == x.device.type and torch.equal(back, x)
+counter = Counter.remote()
+actor = [ray_tpu_torch.get(counter.add.remote(k)) for k in (1, 2, 3)]
+t2 = time.perf_counter()
+task = ray_tpu_torch.get(flash_task.remote(conf["qkv"], conf["seed"],
+                                           device), timeout=600)
+task_s = time.perf_counter() - t2
+ray_tpu_torch.kill(counter)
+ray_tpu_torch.shutdown()  # the client's disconnect
+print("OPERATOR_CLIENT " + json.dumps(dict(
+    connect_s=connect_s, put_s=put_s, get_s=get_s, same=same,
+    device=back.device.type, nbytes=x.nbytes, actor=actor, task=task,
+    task_s=task_s)))
+'''
+
+# The applications `serve-deploy` imports (OPERATOR_DIR/operator_apps.py,
+# on the CLI's and the workers' PYTHONPATH): GPT-2 on a num_gpus=1
+# replica, and a plain deployment on /echo. No torch at module level:
+# the CLI and the controller import it without torch.
+OPERATOR_APPS = r'''
+from ray_tpu_torch import serve
+
+CONF = {conf}
+
+llm = serve.llm.build_app(
+    name="llm", model="gpt", model_config=CONF["model_config"],
+    engine_config=dict(batch_buckets=[1, 2, 4, 8],
+                       prefill_buckets=CONF["buckets"]),
+    seed=CONF["seed"], device=CONF["device"],
+    **({{}} if CONF["device"] == "cuda" else
+       {{"ray_actor_options": {{"num_gpus": 1}}}}))
+
+
+@serve.deployment
+def echo(body=None):
+    return {{"echo": body}}
+
+
+echo_app = echo.bind()
+'''
+
+# The driver that joins by address (OPERATOR_DIR/serve_driver.py): the
+# `gpt` phase's prompts as concurrent streams through
+# `get_deployment_handle("llm")`, the replica's kernel launches counted
+# from 0 just before and read just after; then HTTP to /echo and to an
+# unknown route through the proxy. Imports no torch.
+OPERATOR_SERVE_SCRIPT = r'''
+import json, sys, threading, time, urllib.error, urllib.request
+
+import ray_tpu_torch
+from ray_tpu_torch import serve
+
+conf = json.loads(sys.argv[1])
+ray_tpu_torch.init(address=conf["gcs"])
+handle = serve.get_deployment_handle("llm")
+m0 = handle.engine_metrics.remote().result(timeout=900)  # the replica is up
+up_wall = time.time()
+handle.kernel_launches.remote(reset=True).result(timeout=60)
+outs = [[] for _ in conf["prompts"]]
+firsts = [None] * len(outs)
+errors = []
+t0 = time.perf_counter()
+gens = [handle.generate.options(stream=True).remote(p, conf["max_new"])
+        for p in conf["prompts"]]
+
+
+def read(i):
+    try:
+        for chunk in gens[i]:
+            if firsts[i] is None:
+                firsts[i] = time.time()
+            outs[i].append(chunk["token"])
+    except BaseException as e:  # noqa: BLE001 — raised below
+        errors.append(repr(e))
+
+
+threads = [threading.Thread(target=read, args=(i,)) for i in range(len(gens))]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(timeout=600)
+gen_s = time.perf_counter() - t0
+assert not errors, errors
+launches = handle.kernel_launches.remote().result(timeout=60)
+m1 = handle.engine_metrics.remote().result(timeout=60)
+prefills = sum(c - m0["compiled_step_calls"].get(k, 0)
+               for k, c in m1["compiled_step_calls"].items()
+               if k.startswith("prefill:"))
+base = f"http://127.0.0.1:{conf['http_port']}"
+req = urllib.request.Request(base + "/echo", data=b'{"k": [1, 2]}')
+with urllib.request.urlopen(req, timeout=60) as r:
+    echo = [r.status, r.headers["Content-Type"], json.loads(r.read())]
+try:
+    urllib.request.urlopen(base + "/nope", timeout=60)
+    unknown = None
+except urllib.error.HTTPError as e:
+    unknown = [e.code, json.loads(e.read())]
+ray_tpu_torch.shutdown()
+print("OPERATOR_SERVE " + json.dumps(dict(
+    tokens=outs, first_token_wall=min(firsts), up_wall=up_wall,
+    gen_s=gen_s, launches=launches, prefills=prefills, echo=echo,
+    unknown=unknown, kv_pages_total=m1["kv_pages_total"])))
+'''
+
+
+def _operator_processes():
+    """Live processes the operator phase started outside the runtime's
+    daemons: the CLI's verbs (`-m ray_tpu_torch ...`) and its drivers
+    (scripts under OPERATOR_DIR)."""
+    return _port_processes((b"-m\x00ray_tpu_torch\x00",
+                            str(OPERATOR_DIR).encode()))
+
+
+def _verb(args, env, timeout=OPERATOR_VERB_TIMEOUT_S):
+    """`python -m ray_tpu_torch <args>` to its end; a non-zero exit
+    raises with its output. Returns (stdout, seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                         env=env, cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(
+            f"`ray_tpu_torch {' '.join(args)}` exited {out.returncode}:\n"
+            f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout, seconds
+
+
+def _script(name, text, argv, env, prefix, timeout=OPERATOR_VERB_TIMEOUT_S):
+    """Runs OPERATOR_DIR/<name> (written from `text`) to its end; returns
+    the JSON of its `<prefix> {...}` line and its seconds."""
+    path = OPERATOR_DIR / name
+    path.write_text(text)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(path), *argv], env=env,
+                         cwd=OPERATOR_DIR, capture_output=True, text=True,
+                         timeout=timeout)
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith(prefix + " ")]
+    if out.returncode != 0 or len(lines) != 1:
+        raise AssertionError(
+            f"{name} exited {out.returncode}:\n{out.stdout[-3000:]}\n"
+            f"{out.stderr[-4000:]}")
+    return json.loads(lines[0].split(" ", 1)[1]), seconds
+
+
+def _start_verb(args, env, ready_prefix, log_name):
+    """Starts a long-running verb (`client-server`, `dashboard`) and
+    waits for its ready line; returns (the process, the line, seconds)."""
+    import queue
+
+    t0 = time.perf_counter()
+    log = open(OPERATOR_DIR / log_name, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch", *args], env=env,
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=log, text=True)
+    log.close()
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    deadline = time.monotonic() + OPERATOR_READY_TIMEOUT_S
+    while time.monotonic() < deadline:
+        try:
+            line = lines.get(timeout=0.2)
+        except queue.Empty:
+            if proc.poll() is not None:
+                break
+            continue
+        if line.startswith(ready_prefix):
+            return proc, line.strip(), time.perf_counter() - t0
+    proc.kill()
+    raise AssertionError(
+        f"`ray_tpu_torch {' '.join(args)}` printed no {ready_prefix!r} "
+        f"(exit {proc.poll()}):\n"
+        + (OPERATOR_DIR / log_name).read_text()[-4000:])
+
+
+def _stop_verb(proc, name):
+    """SIGTERM, as an operator's ^C or a service manager ends it; the
+    verb must be gone within 30 s."""
+    if proc.poll() is None:
+        proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise AssertionError(f"`{name}` outlived SIGTERM by 30 s")
+
+
+def _fetch(url):
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=120) as r:
+        status, ctype, body = r.status, r.headers["Content-Type"], r.read()
+    return status, ctype, body, (time.perf_counter() - t0) * 1e3
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_operator(gpt, model="gpt2_125m", buckets=GPT_BUCKETS,
+                   prompt_lens=GPT_PROMPT_LENS, max_new=32, seed=1,
+                   qkv=OPERATOR_QKV, put_bytes=OPERATOR_PUT_BYTES,
+                   store_bytes=SERVE_STORE_BYTES, device="cuda"):
+    """The operator surface on the card (module docstring, phase 15):
+    every verb a subprocess `python -m ray_tpu_torch ...` as an operator
+    runs it. `gpt` holds the `gpt` engine phase's tokens and top-2 gaps.
+    On the CPU (`device="cpu"`) the head's GPU is faked
+    (RAY_TPU_GPU_COUNT=1) and the kernels run their plain versions."""
+    from ray_tpu_torch.autoscaler import gcp_tpu
+
+    card = card_line() if device == "cuda" else "cpu"
+    cfg = getattr(gpt_mod.GPTConfig, model)()
+    prompts = _prompts(cfg, prompt_lens, seed)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    assert not _port_processes(), _port_processes()
+    assert not _operator_processes(), _operator_processes()
+    free0 = _free_card_bytes(device)
+    shutil.rmtree(OPERATOR_DIR, ignore_errors=True)
+    OPERATOR_DIR.mkdir()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env.pop("RAY_TPU_TORCH_ADDRESS", None)
+    env.pop("PYTHONUNBUFFERED", None)  # ready lines must be flushed
+    env["PYTHONPATH"] = os.pathsep.join([str(OPERATOR_DIR), str(root)])
+    env["RAY_TPU_TORCH_CLI_STATE_FILE"] = str(OPERATOR_DIR / "head.json")
+    # request records from the replica and the drivers go to shards the
+    # dashboard's process merges
+    env["RAY_TPU_TRACE"] = "1"
+    env["RAY_TPU_TRACE_DIR"] = str(OPERATOR_DIR / "traces")
+    if device != "cuda":
+        env["RAY_TPU_GPU_COUNT"] = "1"
+    else:
+        env.pop("RAY_TPU_GPU_COUNT", None)
+    env_node = dict(env, RAY_TPU_TORCH_CLI_STATE_FILE=str(
+        OPERATOR_DIR / "node.json"))
+    verbs = {}
+    started = []   # long-running verbs, for the cleanup
+    stops = []     # state files of nodes to `stop`
+    t_phase = time.perf_counter()
+    try:
+        # 1. the head (no --resources: it detects the card) and a
+        # CPU-only node joined by the autoscaler's bootstrap command line
+        out, verbs["start --head"] = _verb(
+            ["start", "--head", "--port", str(_free_port()),
+             "--object-store-memory", str(store_bytes)], env)
+        stops.append(env)
+        gcs = json.loads((OPERATOR_DIR / "head.json").read_text())["gcs_addr"]
+        assert f"GCS started at {gcs}" in out, out
+        boot = gcp_tpu.bootstrap_script(gcs, "smoke-operator-1")
+        line = [ln for ln in boot.splitlines()
+                if "ray_tpu_torch.scripts.cli start" in ln]
+        assert len(line) == 1, boot
+        join = line[0].replace("python ", f"{sys.executable} ", 1) + \
+            """ --resources '{"CPU": 2}'"""
+        t0 = time.perf_counter()
+        joined = subprocess.run(["bash", "-c", join], env=env_node, cwd=root,
+                                capture_output=True, text=True,
+                                timeout=OPERATOR_VERB_TIMEOUT_S)
+        verbs["start --address (bootstrap)"] = time.perf_counter() - t0
+        assert joined.returncode == 0, joined.stderr[-3000:]
+        stops.append(env_node)
+        status, verbs["status"] = _verb(["status", "--address", gcs], env)
+        assert "2 alive node(s)" in status, status
+        head_line = [ln for ln in status.splitlines() if " + " in ln
+                     and "'GPU': 1.0" in ln]
+        assert len(head_line) == 1, status  # the head, with the card
+        assert "resources: total={" in status and "'GPU': 1.0" in \
+            status.split("resources:")[1], status
+
+        # 2. a client:// driver through the client server
+        server, ready, verbs["client-server (ready)"] = _start_verb(
+            ["client-server", "--address", gcs, "--port", "0"], env,
+            "CLIENT_SERVER_READY", "client_server.log")
+        started.append((server, "client-server"))
+        client, client_s = _script(
+            "client_driver.py", OPERATOR_CLIENT_SCRIPT,
+            [ready.split()[1], json.dumps(dict(
+                device=device, seed=seed, put_bytes=put_bytes,
+                qkv=list(qkv)))], env, "OPERATOR_CLIENT")
+        assert client["same"] and client["device"] == (
+            "cuda" if device == "cuda" else "cpu"), client
+        assert client["nbytes"] == put_bytes and client["actor"] == [1, 3, 6]
+        task = client["task"]
+        tol_o, tol_lse = TOL[torch.bfloat16]
+        assert task["finite"] and task["err"] <= tol_o and \
+            task["lse_err"] <= tol_lse, task
+        if device == "cuda":
+            assert task["launches"] == 1, task
+            assert task["visible"] not in (None, "") and \
+                task["card"] == torch.cuda.get_device_name(0), task
+
+        # 3. serve-deploy: GPT-2 on a GPU replica, a plain app on /echo
+        http_port = _free_port()
+        (OPERATOR_DIR / "operator_apps.py").write_text(
+            OPERATOR_APPS.format(conf=repr(dict(
+                model_config=_model_config(cfg), buckets=list(buckets),
+                seed=seed, device=device))))
+        (OPERATOR_DIR / "serve.yaml").write_text(
+            f"http_options:\n  port: {http_port}\n"
+            "applications:\n"
+            "  - name: llm\n"
+            "    import_path: operator_apps:llm\n"
+            "    route_prefix: null\n"
+            "  - name: echo\n"
+            "    import_path: operator_apps:echo_app\n"
+            "    route_prefix: /echo\n")
+        t_deploy = time.time()
+        out, verbs["serve-deploy"] = _verb(
+            ["serve-deploy", str(OPERATOR_DIR / "serve.yaml"),
+             "--address", gcs], env)
+        assert "deployed applications: llm, echo" in out, out
+        served, serve_s = _script(
+            "serve_driver.py", OPERATOR_SERVE_SCRIPT,
+            [json.dumps(dict(gcs=gcs, prompts=prompts, max_new=max_new,
+                             http_port=http_port))], env, "OPERATOR_SERVE")
+        assert all(len(t) == max_new for t in served["tokens"])
+        compared, ties = _near_tie_compare(served["tokens"], gpt["tokens"],
+                                           gpt["gaps"], "operator")
+        fwd = served["launches"]["flash_attention"]
+        assert served["launches"]["flash_attention_bwd"] == 0, served
+        if device == "cuda":
+            assert fwd == cfg.n_layer * served["prefills"] > 0, (
+                fwd, served["prefills"])
+        assert served["echo"] == [200, "application/json; charset=utf-8",
+                                  {"echo": {"k": [1, 2]}}], served["echo"]
+        assert served["unknown"] == [404, {"error": "no route for /nope"}], \
+            served["unknown"]
+
+        # 4. the dashboard in its own process: every route
+        dash_port = _free_port()
+        dash, _, verbs["dashboard (ready)"] = _start_verb(
+            ["dashboard", "--address", gcs, "--port", str(dash_port)], env,
+            "dashboard at", "dashboard.log")
+        started.append((dash, "dashboard"))
+        route_ms, panels = {}, {}
+        for route in OPERATOR_ROUTES:
+            st, ctype, body, ms = _fetch(f"http://127.0.0.1:{dash_port}"
+                                         f"{route}")
+            assert st == 200, (route, st)
+            route_ms[route] = ms
+            if route == "/":
+                assert ctype == "text/html; charset=utf-8" and \
+                    b"ray_tpu_torch dashboard" in body, ctype
+            else:
+                assert ctype == "application/json; charset=utf-8", ctype
+                panels[route] = json.loads(body)
+        assert any(n["Alive"] and n["Resources"].get("GPU") == 1.0
+                   for n in panels["/api/nodes"]), panels["/api/nodes"]
+        assert sum(n["Alive"] for n in panels["/api/nodes"]) == 2
+        assert any(a["class_name"] == "Replica" and a["state"] == "ALIVE"
+                   for a in panels["/api/actors"]), panels["/api/actors"]
+        llm_rows = [d for d in panels["/api/serve_llm"]["deployments"]
+                    if d["deployment"] == "llm"]
+        assert len(llm_rows) == 1 and \
+            llm_rows[0]["replicas"][0]["kv_pages_total"] > 0, panels[
+                "/api/serve_llm"]
+        streamed = [r for r in panels["/api/requests"]["records"]
+                    if r.get("deployment") == "llm"
+                    and r.get("tokens_out") == max_new]
+        assert len(streamed) == len(prompts), panels["/api/requests"]
+
+        # 5. the inspection verbs
+        out, verbs["list actors"] = _verb(["list", "actors", "--address",
+                                           gcs], env)
+        assert any(json.loads(ln)["class_name"] == "Replica" and
+                   json.loads(ln)["state"] == "ALIVE"
+                   for ln in out.splitlines()), out
+        out, verbs["summary"] = _verb(["summary", "--address", gcs], env)
+        assert "flash_task: " in out, out
+        out, verbs["memory"] = _verb(["memory", "--address", gcs], env)
+        assert "primary copies" in out, out
+        tl = OPERATOR_DIR / "timeline.json"
+        out, verbs["timeline"] = _verb(["timeline", "--address", gcs,
+                                        "--output", str(tl)], env)
+        assert any(e["name"] == "flash_task"
+                   for e in json.loads(tl.read_text())), out
+        out, verbs["stack --json"] = _verb(["stack", "--json",
+                                            "--address", gcs], env)
+        reports = json.loads(out)
+        assert not [r for r in reports if r.get("error")], reports
+        roles = sorted(r["role"] for r in reports)
+        assert roles == ["cli", "gcs", "raylet", "raylet"], roles
+        out, verbs["alerts"] = _verb(["alerts", "--scrapes", "2",
+                                      "--interval", "1", "--json",
+                                      "--address", gcs], env)
+        alerts = json.loads(out)
+        assert alerts["alerts"] and alerts["evaluations"] >= 2, alerts
+        out, verbs["top"] = _verb(["top", "--iterations", "2",
+                                   "--interval", "1", "--no-clear",
+                                   "--address", gcs], env)
+        kv = re.findall(r"deployment llm: 1 replicas .* kv=(\d+)/(\d+) "
+                        r"pages", out)
+        assert len(kv) == 2 and int(kv[-1][1]) == served[
+            "kv_pages_total"] > 0, out
+        (OPERATOR_DIR / "job.py").write_text(
+            "print('operator job ok')\n")
+        out, verbs["job submit --wait"] = _verb(
+            # the entrypoint next to `submit`: the card host's Python
+            # 3.12.3 argparse takes it nowhere after the options
+            ["job", "submit", sys.executable, str(OPERATOR_DIR / "job.py"),
+             "--wait", "--address", gcs], env)
+        assert "SUCCEEDED" in out and "operator job ok" in out, out
+
+        # 6. serve shutdown, the long-running verbs ended, both nodes
+        # stopped
+        out, verbs["serve shutdown"] = _verb(["serve", "shutdown",
+                                              "--address", gcs], env)
+        assert "serve instance shut down" in out, out
+    finally:
+        for proc, name in reversed(started):
+            _stop_verb(proc, name)
+        for node_env in reversed(stops):
+            _verb(["stop"], node_env)
+    _assert_clean()
+    deadline = time.monotonic() + 30
+    while _operator_processes() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    assert not _operator_processes(), _operator_processes()
+    free_back, back_s = _wait_free(device, free0 - SERVE_MEM_SLACK, 60)
+    if device == "cuda":
+        assert free_back >= free0 - SERVE_MEM_SLACK, (free0, free_back)
+    shutil.rmtree(OPERATOR_DIR, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    tokens = len(prompts) * max_new
+    row = dict(
+        verbs_s=verbs, head_start_s=verbs["start --head"],
+        join_s=verbs["start --address (bootstrap)"],
+        client_connect_s=client["connect_s"], client_put_s=client["put_s"],
+        client_get_s=client["get_s"], client_task_s=client["task_s"],
+        client_err=task["err"], client_lse_err=task["lse_err"],
+        client_launches=task["launches"], client_script_s=client_s,
+        deploy_to_first_token_s=served["first_token_wall"] - t_deploy,
+        deploy_to_replica_up_s=served["up_wall"] - t_deploy,
+        tokens_per_s=tokens / served["gen_s"], gen_s=served["gen_s"],
+        serve_script_s=serve_s, launches=fwd,
+        prefills=served["prefills"], compared_tokens=compared,
+        near_ties=ties, dashboard_ms=route_ms,
+        stack_s=verbs["stack --json"], free_before=free0,
+        free_after=free_back, free_back_s=back_s, phase_s=phase_s)
+    print(f"operator: `start --head` {row['head_start_s']:.2f} s (GPU 1.0 "
+          f"detected), the node joined by the bootstrap line in "
+          f"{row['join_s']:.2f} s; client:// put+get of a "
+          f"{put_bytes >> 20} MiB {client['device']} tensor "
+          f"{client['put_s']:.3f}+{client['get_s']:.3f} s, the num_gpus=1 "
+          f"kernel task {row['client_task_s']:.2f} s (O err "
+          f"{task['err']:.2e}, lse err {task['lse_err']:.2e}, "
+          f"{task['launches']} launch); `serve-deploy` "
+          f"{verbs['serve-deploy']:.2f} s, the replica up "
+          f"{row['deploy_to_replica_up_s']:.2f} s and the first token "
+          f"{row['deploy_to_first_token_s']:.2f} s after the deploy began; "
+          f"8 streams x {max_new} tokens in {served['gen_s']:.3f} s = "
+          f"{row['tokens_per_s']:.1f} tok/s; flash launches in the replica "
+          f"{fwd} = {cfg.n_layer} x {served['prefills']} prefills; tokens "
+          f"equal to the `gpt` phase's: {compared} compared, {len(ties)} "
+          f"near-tie stop(s); HTTP /echo 200, /nope 404 through the "
+          f"proxy; `stack` {row['stack_s']:.2f} s; no process or segment "
+          f"left, the card's free memory {free0 / 2**30:.2f} GiB before, "
+          f"{free_back / 2**30:.2f} after; {phase_s:.1f} s in all "
+          f"(card: {card})")
+    print("operator: dashboard ms " + ", ".join(
+        f"{r} {ms:.1f}" for r, ms in route_ms.items()))
+    print("operator: verbs s " + ", ".join(
+        f"{v} {s:.2f}" for v, s in verbs.items()))
+    return row
+
+
 def _numbers(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}
@@ -3849,7 +4446,7 @@ BWD_DESIGN = (
 
 def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
                  spec, runtime, serve_row, train_dist, train_data, dag,
-                 cluster, ptxas):
+                 cluster, operator, ptxas):
     """The `kernels` entries: every ported kernel with its numbers. The
     forward at the serving path's largest prefill shape (with the GPT-2
     run's launches per prefill bucket at that bucket's time), the
@@ -3863,7 +4460,8 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
     GPU worker's, both attempts; `train_data`: the Dataset-fed
     `TorchTrainer` GPU worker's; `dag`: the fused chain's executes;
     `dag_actor`: the actor graph's GPU actor's; `cluster`: the GPU step's
-    worker on the autoscaled node)."""
+    worker on the autoscaled node; `operator`: the GPU replica that
+    `serve-deploy` started)."""
     def at(table, shape):
         return next(r for r in table if r["shape"] == shape)
 
@@ -3913,6 +4511,7 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_dag": dag["fused"]["launches"],
         "launches_dag_actor": dag["actor"]["launches"],
         "launches_cluster": cluster["launches"],
+        "launches_operator": operator["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **_numbers(main_row),
         "at": MAIN_SHAPE,
@@ -4010,16 +4609,20 @@ def main() -> int:
     # the cluster tooling: a submitted job's workflow step on a GPU node
     # that the autoscaler launches for it and retires once idle
     cluster = phase_cluster(gpt_ref)
+    # the operator surface: the CLI's verbs, a client:// driver, GPT-2
+    # deployed by `serve-deploy`, the dashboard
+    operator = phase_operator(gpt_ref)
 
     kernels = kernels_line(rows, bwd_rows, train, train_llama, train_long,
                            gpt, llama, spec, runtime, serve_row, train_dist,
-                           train_data, dag, cluster, ptxas)
+                           train_data, dag, cluster, operator, ptxas)
     print(json.dumps({"build_s": build_s, "train": train,
                       "train_llama": train_llama, "train_long": train_long,
                       "engines": [gpt, llama], "engine_spec": spec,
                       "runtime": runtime, "serve": serve_row,
                       "train_dist": train_dist, "train_data": train_data,
-                      "dag": dag, "soak": soak, "cluster": cluster}))
+                      "dag": dag, "soak": soak, "cluster": cluster,
+                      "operator": operator}))
     print(json.dumps({"kernels": kernels}))
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
           f"{build_s:.1f} s of it")

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import glob
 import os
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 # label keys carried by every raylet in a slice
 LABEL_SLICE_NAME = "ray_tpu.slice_name"
@@ -41,25 +41,21 @@ GPU_COUNT_ENV = "RAY_TPU_GPU_COUNT"
 WORKER_VISIBLE_ENV = "RAY_TPU_WORKER_CUDA_VISIBLE_DEVICES"
 
 
-def visible_devices() -> Optional[List[str]]:
-    """The entries of a set CUDA_VISIBLE_DEVICES ("" is none), or None
-    when it is unset."""
-    env = os.environ.get("CUDA_VISIBLE_DEVICES")
-    if env is None:
-        return None
-    return [d for d in env.split(",") if d.strip()]
-
-
-def num_local_gpus() -> int:
+def num_local_gpus(visible_env: str = "CUDA_VISIBLE_DEVICES") -> int:
     """Detect this host's CUDA device count: the override first, then a
-    set CUDA_VISIBLE_DEVICES, then a device list in NVIDIA_VISIBLE_DEVICES,
-    then the device files /dev/nvidia<N>."""
+    device list in `visible_env` where it is set ("" is none), then one
+    in NVIDIA_VISIBLE_DEVICES, then the device files /dev/nvidia<N>.
+
+    A daemon that `node._spawn` started runs with CUDA_VISIBLE_DEVICES=""
+    (daemons never touch a device), so it passes WORKER_VISIBLE_ENV,
+    where the host's own setting is kept: a raylet started with no
+    resources counts the GPUs it will hand to its workers."""
     env = os.environ.get(GPU_COUNT_ENV)
     if env:
         return int(env)
-    visible = visible_devices()
+    visible = os.environ.get(visible_env)
     if visible is not None:
-        return len(visible)
+        return len([d for d in visible.split(",") if d.strip()])
     given = os.environ.get("NVIDIA_VISIBLE_DEVICES", "").strip()
     if given in ("none", "void"):
         return 0

@@ -696,16 +696,42 @@ class GcsServer:
             job["finished"] = True
             job["end_time"] = time.time()
             self._persist("jobs", job_id, job)
-        # Tear down the job's non-detached actors.
+        # Tear down the job's non-detached actors, but not those a live
+        # detached actor created (directly or through other such actors):
+        # a Serve controller's replicas outlive the `serve-deploy` job
+        # that started the controller. Their workers stay up too.
+        survivors = self._job_survivors(job_id)
         for actor_id, info in list(self.actors.items()):
-            if info["job_id"] == job_id and not info.get("detached") \
+            if info["job_id"] == job_id and actor_id not in survivors \
                     and info["state"] != DEAD:
                 await self._kill_actor(actor_id, "job finished")
         await export_events.report_async(
             "GCS", "INFO", "JOB_FINISHED",
             f"job {job_id.hex()[:8]} finished", job_id=job_id.hex())
-        await self.publish("jobs", {"event": "finished", "job_id": job_id})
+        await self.publish("jobs", {
+            "event": "finished", "job_id": job_id,
+            "keep_workers": [self.actors[a]["addr"] for a in survivors
+                             if self.actors[a].get("addr")]})
         return {"ok": True}
+
+    def _job_survivors(self, job_id: bytes) -> set:
+        """The live actors of `job_id` that outlive it: the detached ones
+        and, transitively, those whose creator (the spec's owner worker)
+        is one of them, in any incarnation: an owner that is restarting
+        or came back on another worker still counts."""
+        live = {a: info for a, info in self.actors.items()
+                if info["job_id"] == job_id and info["state"] != DEAD}
+        survivors = {a for a, info in live.items() if info.get("detached")}
+        owners = {a: task_mod.TaskSpec.from_wire(info["spec"]).owner_worker_id
+                  for a, info in live.items() if a not in survivors}
+        while True:
+            workers = {w for a in survivors
+                       for w in live[a].get("worker_ids", ()) if w}
+            grown = {a for a, owner in owners.items()
+                     if a not in survivors and owner in workers}
+            if not grown:
+                return survivors
+            survivors |= grown
 
     # ------------------------------------------------------------------
     # actors (GcsActorManager + GcsActorScheduler)
@@ -817,6 +843,9 @@ class GcsServer:
         info["addr"] = worker_addr
         info["node_id"] = node.node_id
         info["worker_id"] = lease.get("worker_id")
+        # every incarnation's worker: the actors an earlier incarnation
+        # created name it as their owner (`_job_survivors`)
+        info.setdefault("worker_ids", []).append(info["worker_id"])
         await self._publish_actor(actor_id)
         return True
 

@@ -128,7 +128,7 @@ class Raylet:
             # no explicit resources: auto-detect like the reference's
             # accelerator managers (nvidia_gpu.py device detection)
             self.total = {"CPU": float(os.cpu_count() or 1)}
-            gpus = accelerators.num_local_gpus()
+            gpus = accelerators.num_local_gpus(accelerators.WORKER_VISIBLE_ENV)
             if gpus:
                 self.total["GPU"] = float(gpus)
         # host 0 of a slice carries the one-per-slice head resource
@@ -700,9 +700,13 @@ class Raylet:
                 self._apply_job_quota(data["job_id"], data.get("quotas"))
             elif data.get("event") == "finished":
                 job_id = data["job_id"]
+                # workers of the actors that outlive the job (the GCS's
+                # `_job_survivors`) stay
+                keep = set(data.get("keep_workers") or ())
                 for worker in list(self._workers.values()):
                     if worker.job_id == job_id and worker.proc \
-                            and worker.proc.returncode is None:
+                            and worker.proc.returncode is None \
+                            and worker.addr not in keep:
                         worker.proc.terminate()
         elif msg["channel"] == "resources":
             d = msg["data"]

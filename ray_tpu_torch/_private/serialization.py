@@ -28,6 +28,12 @@ zero-copy view over the store's shared memory, as a numpy array from
 it would change the stored object for every reader, so a caller that
 mutates it clones it first. Values without tensors pickle byte for byte
 as in the JAX package, and nothing here imports torch.
+
+A process that only relays values, the client server
+(`util/client/server.py`), calls `relay_cuda_tensors()`: from then on a
+CUDA tensor it reads stays on the host, tagged with its device, and
+serializing it again restores the tag, so the relay needs no GPU and
+the reader at the far end gets a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -45,6 +51,20 @@ from ray_tpu_torch._private.object_ref import ObjectRef
 
 MAGIC = 0x52415931  # "RAY1"
 _ALIGN = 64
+
+# set by `relay_cuda_tensors()`: CUDA tensors read in this process stay
+# on the host, tagged with `_RELAY_ATTR`
+_relay = False
+_RELAY_ATTR = "_ray_tpu_torch_device"
+
+
+def relay_cuda_tensors():
+    """Keep the CUDA tensors this process reads on the host, each tagged
+    so that serializing it again marks it `cuda` (see the module's
+    docstring)."""
+    global _relay
+    _relay = True
+
 
 # Registry of custom serializers, mirroring ray.util.register_serializer.
 _custom_serializers: dict[type, tuple[Callable, Callable]] = {}
@@ -101,6 +121,7 @@ def _reduce_tensor(torch, t):
     if (t.layout != torch.strided or t.is_quantized or t.is_meta
             or t.device.type not in ("cpu", "cuda")):
         return None
+    device_type = getattr(t, _RELAY_ATTR, None) or t.device.type
     data = t.detach()
     if data.device.type != "cpu":
         data = data.to("cpu")  # CUDA tensors travel through the host
@@ -108,7 +129,7 @@ def _reduce_tensor(torch, t):
     raw = data.reshape(-1).view(torch.uint8).numpy()
     return (_rebuild_tensor,
             (pickle.PickleBuffer(raw), str(t.dtype).split(".", 1)[1],
-             tuple(t.shape), t.device.type, t.requires_grad,
+             tuple(t.shape), device_type, t.requires_grad,
              type(t) is torch.nn.Parameter))
 
 
@@ -117,11 +138,14 @@ def _rebuild_tensor(buf, dtype_name, shape, device_type, requires_grad,
     """Inverse of `_reduce_tensor`. A CPU tensor is a view over `buf`
     (the store's memory on `get`); an in-band frame's read-only bytes are
     copied first. A CUDA tensor lands on this process's `cuda` device,
-    and raises where no GPU is visible."""
+    and raises where no GPU is visible; in a relay
+    (`relay_cuda_tensors`) it stays on the host, tagged."""
     import torch
 
     dtype = getattr(torch, dtype_name)
-    if device_type == "cuda" and not torch.cuda.is_available():
+    relayed = device_type == "cuda" and _relay
+    if device_type == "cuda" and not relayed \
+            and not torch.cuda.is_available():
         raise RuntimeError(
             f"ray_tpu_torch: a CUDA tensor {list(shape)} {dtype_name} "
             f"cannot be restored in this process: it sees no GPU "
@@ -135,11 +159,15 @@ def _rebuild_tensor(buf, dtype_name, shape, device_type, requires_grad,
         if view.readonly:
             view = memoryview(bytearray(view))
         t = torch.frombuffer(view, dtype=dtype).reshape(shape)
-    if device_type == "cuda":
+    if device_type == "cuda" and not relayed:
         t = t.to("cuda")
     if parameter:
-        return torch.nn.Parameter(t, requires_grad=requires_grad)
-    return t.requires_grad_(requires_grad) if requires_grad else t
+        t = torch.nn.Parameter(t, requires_grad=requires_grad)
+    elif requires_grad:
+        t = t.requires_grad_(requires_grad)
+    if relayed:
+        setattr(t, _RELAY_ATTR, "cuda")
+    return t
 
 
 def _align(n: int) -> int:

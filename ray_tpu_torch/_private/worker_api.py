@@ -137,11 +137,14 @@ def init(
                     f"init(address='client://...') does not accept "
                     f"{bad} — configure the cluster where the "
                     f"client-server runs")
-            # the JAX package's ray_tpu/util/client: not ported yet
-            raise NotImplementedError(
-                "ray_tpu_torch: client:// drivers (the JAX package's "
-                "util/client) are not ported yet; they come with a later "
-                "slice of the port (ROADMAP Queue 1)")
+            from ray_tpu_torch.util.client import ClientContext
+
+            host_port = address.split("://", 1)[1]
+            ctx = ClientContext(host_port)
+            _global_state = GlobalState(None, None, owns_cluster=False,
+                                        client=ctx)
+            atexit.register(shutdown)
+            return _global_state
         if address is None:
             node_resources = dict(resources or {})
             import os as _os

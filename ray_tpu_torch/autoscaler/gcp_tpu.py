@@ -23,8 +23,8 @@ The port's copy of `ray_tpu/autoscaler/gcp_tpu.py`, with its names and
 its injected `transport`: the tests drive it against a fake API whose
 hosts are the port's GPU slices (`Cluster.add_slice`), with no network.
 `bootstrap_script` starts a host with `python -m
-ray_tpu_torch.scripts.cli start`, which comes with the port of the CLI
-(`scripts/cli.py`); until then a host booted from it cannot join.
+ray_tpu_torch.scripts.cli start --address ... --labels ...`, the port's
+CLI, which detects the host's GPUs.
 """
 
 from __future__ import annotations

@@ -1,9 +1,12 @@
 """HTTP proxy actor.
 
 Reference: `python/ray/serve/_private/proxy.py:748,1112` (HTTPProxy /
-ProxyActor). An aiohttp server inside an actor routes
+ProxyActor). An HTTP server inside an actor routes
 `{route_prefix}` → deployment handle; JSON bodies become the request
-argument, results are JSON-encoded.
+argument, results are JSON-encoded. The server is the port's own
+(`_private/http.py`, on asyncio streams) where the JAX package's proxy
+runs aiohttp: the routes, status codes, bodies, `Content-Type`s, stream
+chunks and ASGI scopes are the same.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import threading
 from typing import Any, Dict, Optional
 
 import ray_tpu_torch
+from ray_tpu_torch._private import http
 from ray_tpu_torch.serve.handle import DeploymentHandle
 
 
@@ -48,8 +52,6 @@ class HTTPProxy:
         return best
 
     def _serve(self):
-        from aiohttp import web
-
         _STREAM = object()  # marker: second element is a chunk generator
         _ASGI = object()    # marker: second element is a send-event gen
 
@@ -105,23 +107,21 @@ class HTTPProxy:
                 else handle.remote()
             return 200, resp.result(timeout=60)
 
-        async def handler(request: "web.Request") -> "web.Response":
-            raw_body = await request.read() if request.can_read_body \
-                else None
+        async def handler(request: http.Request):
+            raw_body = request.body or None
             # plain-data ASGI scope (it crosses an RPC to the replica)
-            peer = request.transport.get_extra_info("peername") \
-                if request.transport else None
+            peer = request.peer
             scope_base = {
                 "type": "http",
                 "asgi": {"version": "3.0", "spec_version": "2.3"},
                 "http_version": "1.1",
                 "method": request.method,
-                "scheme": request.scheme,
+                "scheme": "http",
                 "path": request.path,
                 "raw_path": request.raw_path.encode(),
                 "query_string": request.query_string.encode(),
                 "headers": [(k.lower().encode(), v.encode())
-                            for k, v in request.headers.items()],
+                            for k, v in request.headers],
                 "client": tuple(peer[:2]) if peer else None,
                 "server": (self._host, self._port),
             }
@@ -131,10 +131,10 @@ class HTTPProxy:
                     None, dispatch_blocking, request.path, raw_body,
                     scope_base)
             except Exception as e:  # noqa: BLE001 — surfaced as HTTP 500
-                return web.json_response({"error": str(e)}, status=500)
+                return http.json_response({"error": str(e)}, status=500)
             if status is _ASGI:
                 gen = result
-                resp = web.StreamResponse()
+                resp = http.StreamResponse()
                 started = False
                 try:
                     while True:
@@ -152,10 +152,10 @@ class HTTPProxy:
                                     hv, (bytes, bytearray)) else hv
                                 if name.lower() in ("content-length",
                                                     "transfer-encoding"):
-                                    continue  # aiohttp manages framing
-                                # .add, not assignment: multi-value
+                                    continue  # the server frames the body
+                                # added, not assigned: multi-value
                                 # headers (Set-Cookie) must all survive
-                                resp.headers.add(name, val)
+                                resp.add_header(name, val)
                             await resp.prepare(request)
                             started = True
                         elif t == "http.response.body":
@@ -167,7 +167,7 @@ class HTTPProxy:
                                 await resp.write(bytes(chunk))
                         elif t == "serve.error":
                             if not started:
-                                return web.json_response(
+                                return http.json_response(
                                     {"error": ev.get("error", "ASGI app "
                                                               "failed")},
                                     status=500)
@@ -181,7 +181,7 @@ class HTTPProxy:
             if status is _STREAM:
                 # JSON-lines chunked response; each chunk flushes as the
                 # replica yields it
-                resp = web.StreamResponse(
+                resp = http.StreamResponse(
                     headers={"Content-Type": "application/jsonl"})
                 await resp.prepare(request)
                 gen = result
@@ -201,17 +201,13 @@ class HTTPProxy:
                 await resp.write_eof()
                 return resp
             try:
-                return web.json_response(result, status=status)
+                return http.json_response(result, status=status)
             except TypeError:
-                return web.Response(text=str(result), status=status)
+                return http.text_response(str(result), status=status)
 
-        app = web.Application()
-        app.router.add_route("*", "/{tail:.*}", handler)
         loop = asyncio.new_event_loop()
         asyncio.set_event_loop(loop)
-        runner = web.AppRunner(app)
-        loop.run_until_complete(runner.setup())
-        site = web.TCPSite(runner, self._host, self._port)
-        loop.run_until_complete(site.start())
+        loop.run_until_complete(
+            http.start_server(handler, self._host, self._port))
         self._started.set()
         loop.run_forever()

@@ -6,8 +6,8 @@ the JAX package's `ray_tpu/util/` modules: the metrics registry
 the per-step flight recorder (`step_profiler`), the per-request
 recorder (`request_recorder`), the state API (`state`), the timeline
 (`timeline`), `actor_pool`, `queue`, `multiprocessing`, the metrics
-time series (`tsdb`) and the SLO alerts (`slo`). The Ray Client
-(`util/client`) comes with its own slice of the port.
+time series (`tsdb`), the SLO alerts (`slo`) and the Ray Client
+(`client`: `init(address="client://host:port")` and its server).
 """
 
 from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram

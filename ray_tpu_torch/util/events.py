@@ -1,14 +1,15 @@
 """Structured events as durable JSONL.
 
-The port's own copy of the part of `ray_tpu/util/events.py` that the
-health watchdog (`ray_tpu_torch._private.health`) needs: `report()`
+The port's own copy of `ray_tpu/util/events.py`. The health watchdog
+(`ray_tpu_torch._private.health`) and the daemons report: `report()`
 appends one severity/label/source-tagged event to a JSONL shard per
 (source, pid), with the same size cap and rotation
 (`RAY_TPU_EVENTS_MAX_BYTES`, `RAY_TPU_EVENTS_KEEP`), and `list_events()`
 merges the shards. The directory is `RAY_TPU_EVENT_DIR`, by default
 `ray_tpu/events` under the temporary directory (`TMPDIR`).
-`report_async()` is `report()` for the runtime's async daemons. The OTLP
-export is not ported.
+`report_async()` is `report()` for the runtime's async daemons.
+`export_otlp()` writes the merged log as an OTLP/JSON Logs payload (the
+CLI's `events --otlp`), its services named `ray_tpu_torch.<source>`.
 """
 
 from __future__ import annotations
@@ -168,3 +169,62 @@ def list_events(source: Optional[str] = None,
             continue
     out.sort(key=lambda e: e.get("ts", 0))
     return out
+
+
+# -- OpenTelemetry export ----------------------------------------------------
+
+_OTLP_SEVERITY_NUM = {"DEBUG": 5, "INFO": 9, "WARNING": 13, "ERROR": 17,
+                      "FATAL": 21}
+
+
+def export_otlp(out_path: str, source: Optional[str] = None,
+                severity: Optional[str] = None,
+                label: Optional[str] = None,
+                path: Optional[str] = None) -> int:
+    """Write the merged event log as an OTLP/JSON Logs payload.
+
+    Reference: the reference exports its event/metric streams through an
+    OpenTelemetry pipeline (`src/ray/util/event.h` + the dashboard's
+    metrics agent). Zero-egress equivalent: one `resourceLogs` entry per
+    (source, pid) shard in the standard OTLP-JSON shape, ready for
+    `otelcol --config 'receivers: filelog'` or any OTLP ingester.
+    Returns the number of log records written.
+    """
+    events = list_events(source=source, severity=severity, label=label,
+                         path=path)
+    by_resource: Dict[tuple, List[dict]] = {}
+    for ev in events:
+        by_resource.setdefault(
+            (ev.get("source", "?"), ev.get("pid", 0)), []).append(ev)
+    resource_logs = []
+    for (src, pid), evs in sorted(by_resource.items()):
+        records = []
+        for ev in evs:
+            attrs = [
+                {"key": k, "value": {"stringValue": str(v)}}
+                for k, v in ev.items()
+                if k not in ("ts", "severity", "message", "source", "pid")
+            ]
+            records.append({
+                "timeUnixNano": str(int(ev.get("ts", 0) * 1e9)),
+                "severityNumber": _OTLP_SEVERITY_NUM.get(
+                    ev.get("severity", "INFO"), 9),
+                "severityText": ev.get("severity", "INFO"),
+                "body": {"stringValue": ev.get("message", "")},
+                "attributes": attrs,
+            })
+        resource_logs.append({
+            "resource": {"attributes": [
+                {"key": "service.name",
+                 "value": {"stringValue": f"ray_tpu_torch.{src.lower()}"}},
+                {"key": "process.pid",
+                 "value": {"intValue": str(pid)}},
+            ]},
+            "scopeLogs": [{
+                "scope": {"name": "ray_tpu_torch.events"},
+                "logRecords": records,
+            }],
+        })
+    with open(out_path, "w") as f:
+        json.dump({"resourceLogs": resource_logs}, f)
+    return len(events)

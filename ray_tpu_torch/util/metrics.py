@@ -11,7 +11,6 @@ their callbacks on it. `serve_metrics` serves it as each daemon's
 
 from __future__ import annotations
 
-import asyncio
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -203,41 +202,27 @@ class Histogram(Metric):
 async def serve_metrics(host: str = "127.0.0.1", port: int = 0,
                         registry: Optional[_Registry] = None,
                         extra_text=None):
-    """Serve `GET /metrics` in Prometheus text format on a raw asyncio
-    server (daemons must not depend on aiohttp). Returns (server, port).
-    `extra_text`: zero-arg callable appending daemon-specific gauges
-    computed at scrape time."""
+    """Serve `GET /metrics` in Prometheus text format through the port's
+    own HTTP server (daemons must not depend on aiohttp), one response
+    per connection, as the JAX package's raw server answers. Returns
+    (server, port). `extra_text`: zero-arg callable appending
+    daemon-specific gauges computed at scrape time."""
+    from ray_tpu_torch._private import http
+
     reg = registry or DEFAULT_REGISTRY
 
-    async def handle(reader, writer):
-        try:
-            # consume the request head; path irrelevant — everything is
-            # /metrics. Bounded: an idle connection must not pin a task
-            # forever.
-            while True:
-                line = await asyncio.wait_for(reader.readline(),
-                                              timeout=5.0)
-                if not line or line in (b"\r\n", b"\n"):
-                    break
-            body = reg.prometheus_text()
-            if extra_text is not None:
-                body += extra_text()
-            # OpenMetrics-style terminator: scrapers use it to tell a
-            # complete exposition from a truncated one
-            body += "# EOF\n"
-            payload = body.encode()
-            writer.write(
-                b"HTTP/1.1 200 OK\r\n"
-                b"Content-Type: text/plain; version=0.0.4\r\n"
-                b"Content-Length: " + str(len(payload)).encode() +
-                b"\r\nConnection: close\r\n\r\n" + payload)
-            await writer.drain()
-        except (ConnectionResetError, BrokenPipeError,
-                asyncio.TimeoutError):
-            pass
-        finally:
-            writer.close()
+    async def handle(request):
+        # path irrelevant — everything is /metrics
+        body = reg.prometheus_text()
+        if extra_text is not None:
+            body += extra_text()
+        # OpenMetrics-style terminator: scrapers use it to tell a
+        # complete exposition from a truncated one
+        body += "# EOF\n"
+        request.keep_alive = False
+        return http.Response(body.encode(), 200,
+                             "text/plain; version=0.0.4")
 
-    server = await asyncio.start_server(handle, host, port)
+    server = await http.start_server(handle, host, port)
     actual_port = server.sockets[0].getsockname()[1]
     return server, actual_port

@@ -22,7 +22,8 @@ scrape-time callback on the port's ``DEFAULT_REGISTRY``
 (``train_step_*`` and ``compiled_dispatch_*`` families); with
 ``RAY_TPU_TRACE=1`` each record is also appended to a
 ``steps-<pid>.jsonl`` shard beside the span shards, which ``collect()``
-merges and ``to_chrome()`` renders as a per-process "train-step" row.
+merges and ``to_chrome()`` renders as a per-process "train-step" row;
+``format_table()`` prints the last-N table (the CLI's ``profile``).
 
 MFU divides by the card's peak: ``_detect_peak_flops`` asks
 ``torch.cuda`` for the device and knows the H100's dense bf16 peak.
@@ -503,6 +504,35 @@ def to_chrome(records: List[Dict[str, Any]]) -> List[dict]:
                 "pid": pid, "args": {"mfu": r["mfu"]},
             })
     return events
+
+
+def format_table(records: List[Dict[str, Any]],
+                 last: int = 20) -> str:
+    """The last-N step table with MFU and a time-attribution footer."""
+    recs = records[-last:]
+    if not recs:
+        return "no step records (is the training process running with " \
+               "the step profiler enabled?)"
+    header = (f"{'step':>8} {'total ms':>10} {'dispatch':>9} "
+              f"{'device':>9} {'data':>8} {'coll':>8} {'ckpt':>8} "
+              f"{'tokens':>9} {'MFU':>7}")
+    rows = [header, "-" * len(header)]
+    for r in recs:
+        mfu = "-" if r.get("mfu") is None else f"{r['mfu']:.4f}"
+        rows.append(
+            f"{r.get('step', 0):>8} {r.get('total_ms', 0.0):>10.2f} "
+            f"{r.get('host_dispatch_ms', 0.0):>9.2f} "
+            f"{r.get('device_execute_ms', 0.0):>9.2f} "
+            f"{r.get('data_wait_ms', 0.0):>8.2f} "
+            f"{r.get('collective_ms', 0.0):>8.2f} "
+            f"{r.get('checkpoint_ms', 0.0):>8.2f} "
+            f"{r.get('tokens', 0):>9} {mfu:>7}")
+    attr = attribution(recs)
+    if attr:
+        rows.append("")
+        rows.append("time attribution: " + "  ".join(
+            f"{k}={100 * v:.1f}%" for k, v in attr.items() if v > 0))
+    return "\n".join(rows)
 
 
 # register the scrape-time callback once per process (idempotent: the

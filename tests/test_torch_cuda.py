@@ -15,7 +15,10 @@ compiled DAG on the card (a fused `torch_stage` chain's held results, a
 capture failure that raises, a CUDA tensor across a channel from a GPU
 actor, a `TorchTrainer` GPU worker on a `streaming_split` shard), and
 the autoscaler (a GPU node launched for a num_gpus=1 task and retired
-once idle, the card's memory back).
+once idle, the card's memory back), and the operator CLI (a head started
+with no `--resources` detects the card; a `client://` driver puts a CUDA
+tensor through the client server and holds the kernel in a num_gpus=1
+task against its plain version).
 
 Every test here needs an NVIDIA GPU and `nvcc` and skips without them.
 On a machine with a card (and no JAX), run them with
@@ -1270,3 +1273,95 @@ def test_autoscaled_gpu_node_runs_a_gpu_task_and_retires_when_idle():
     assert got["node"] == got["gpu_node"] and got["visible"] == "0"
     assert got["err"] < 2e-2 and got["launches"] >= 1
     assert got["retired"] and got["dead"] and got["memory_back"]
+
+
+CLI_CLIENT_SCRIPT = r'''
+import json, sys
+
+import torch
+
+import ray_tpu_torch
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def kernel_task(seed):
+    import torch
+
+    from ray_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_attention_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(1, 1024, 12, 64, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    with torch.inference_mode():
+        flash_attention.launches = 0
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        launches = flash_attention.launches
+        ref, ref_lse = flash_attention_plain(q, k, v, causal=True)
+    return [float((out.float() - ref.float()).abs().max()),
+            float((lse - ref_lse).abs().max()), launches]
+
+
+ray_tpu_torch.init(address=f"client://{sys.argv[1]}")
+x = torch.arange(1 << 20, dtype=torch.float32, device="cuda") * 0.25
+back = ray_tpu_torch.get(ray_tpu_torch.put(x))
+kernel = ray_tpu_torch.get(kernel_task.remote(0), timeout=600)
+ray_tpu_torch.shutdown()
+print(json.dumps(dict(same=bool(back.is_cuda and torch.equal(back, x)),
+                      kernel=kernel)))
+'''
+
+
+def test_cli_head_detects_the_card_and_a_client_task_runs_the_kernel(
+        tmp_path):
+    """`python -m ray_tpu_torch start --head` with no `--resources`
+    advertises the card as its GPU (F14); a `client://` driver's CUDA
+    tensor round-trips through the client server, and its num_gpus=1
+    task holds the forward kernel at GPT-2's prefill shape against the
+    plain version (one launch)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root),
+               RAY_TPU_TORCH_CLI_STATE_FILE=str(tmp_path / "cli.json"))
+    env.pop("RAY_TPU_GPU_COUNT", None)
+    env.pop("RAY_TPU_TORCH_ADDRESS", None)
+    cli = [sys.executable, "-m", "ray_tpu_torch"]
+
+    def run(args):
+        out = subprocess.run(cli + args, env=env, cwd=root,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        return out.stdout
+
+    run(["start", "--head", "--port", "0"])
+    server = None
+    try:
+        gcs = json.loads((tmp_path / "cli.json").read_text())["gcs_addr"]
+        status = run(["status", "--address", gcs])
+        assert f"'GPU': {float(torch.cuda.device_count())}" in status, status
+        server = subprocess.Popen(
+            cli + ["client-server", "--address", gcs, "--port", "0"],
+            env=env, cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL, text=True)
+        line = server.stdout.readline()
+        assert line.startswith("CLIENT_SERVER_READY"), line
+        out = subprocess.run(
+            [sys.executable, "-c", CLI_CLIENT_SCRIPT, line.split()[1]],
+            env=env, cwd=root, capture_output=True, text=True, timeout=600)
+        assert out.returncode == 0, out.stderr[-4000:]
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        err, lse_err, launches = got["kernel"]
+        tol_o, tol_lse = TOL[torch.bfloat16]
+        assert got["same"] and err <= tol_o and lse_err <= tol_lse, got
+        assert launches == 1, got
+    finally:
+        if server is not None:
+            server.terminate()
+            server.wait(timeout=30)
+        run(["stop"])

@@ -6,7 +6,9 @@ package and chip_smoke's imports, then inspects `sys.modules`; and an
 AST scan of every source file finds no such import statement (which
 also catches imports inside functions that the first check never runs).
 A third check keeps the runtime light: the package and its daemons' and
-workers' modules import without torch.
+workers' modules import without torch. No module of the port imports
+`aiohttp` (its HTTP servers are `_private/http.py`); the gRPC proxy's
+`grpc` is the port's one optional web dependency.
 """
 
 import ast
@@ -21,7 +23,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "ray_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu", "aiohttp")
 
 
 def _forbidden(name: str) -> bool:
@@ -29,7 +31,11 @@ def _forbidden(name: str) -> bool:
 
 
 def _modules():
+    """Every module of the package but `__main__`, which runs the CLI
+    when imported (the AST scan below still reads it)."""
     for path in sorted(PKG.rglob("*.py")):
+        if path.name == "__main__.py":
+            continue
         rel = path.relative_to(ROOT).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         yield ".".join(parts)
@@ -246,3 +252,43 @@ def test_autoscaler_util_jobs_and_workflow_leave_torch_unimported():
     assert "torch" not in loaded
     assert not [m for m in loaded if _forbidden(m)]
     assert set(mods) <= set(loaded)
+
+
+def test_operator_surface_leaves_torch_unimported():
+    """`import ray_tpu_torch.dashboard`, `.util.client` (and its modules)
+    and `.scripts.cli` import no torch: an operator's shell, the
+    dashboard's process and the client server run without it."""
+    mods = ["ray_tpu_torch.dashboard", "ray_tpu_torch.util.client",
+            "ray_tpu_torch.util.client.common",
+            "ray_tpu_torch.util.client.server", "ray_tpu_torch.scripts",
+            "ray_tpu_torch.scripts.cli", "ray_tpu_torch._private.http"]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "torch" not in loaded
+    assert not [m for m in loaded if _forbidden(m)]
+    assert set(mods) <= set(loaded)
+
+
+def test_cli_help_imports_neither_torch_nor_jax():
+    """`python -m ray_tpu_torch status --help` (the module's `__main__`)
+    prints the verb's usage and loads neither torch nor jax; the list of
+    loaded modules is Python's own `-X importtime` report."""
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "ray_tpu_torch",
+         "status", "--help"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("usage: ray_tpu_torch status")
+    loaded = {line.rsplit("|", 1)[1].strip()
+              for line in out.stderr.splitlines()
+              if line.startswith("import time:") and line.count("|") == 2}
+    assert "ray_tpu_torch.scripts.cli" in loaded
+    top = {m.split(".")[0] for m in loaded}
+    assert not top & {"torch", "jax", "jaxlib", "aiohttp", "ray_tpu"}

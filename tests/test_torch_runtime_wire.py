@@ -214,13 +214,17 @@ def test_serializer_leaves_torch_unimported():
     assert out.stdout.strip() == "False"
 
 
-# The paths the port deferred to later slices: `client://` drivers still
-# raise, naming the slice; the compiled-DAG channels came with S4e.
+# The paths the port deferred to later slices: `client://` drivers came
+# with the operator slice, the compiled-DAG channels with S4e.
 
 def test_client_drivers_are_deferred():
+    """No longer deferred: `client://` routes to the port's
+    `ClientContext`, which dials the client server; with none listening
+    the connection is refused and no driver state is left behind
+    (`tests/test_torch_client.py` drives a live one)."""
     import ray_tpu_torch
 
-    with pytest.raises(NotImplementedError, match="util/client"):
+    with pytest.raises(OSError):
         ray_tpu_torch.init(address="client://127.0.0.1:1")
     assert not ray_tpu_torch.is_initialized()
 

@@ -7,7 +7,7 @@ and `metrics_text` rows. The scenarios are those of `tests/test_slo.py`
 tsdb cases of `tests/test_request_recorder.py` (exposition parsing,
 bounds, rates, quantiles); each checks the JAX package's values as its
 oracle file does, then requires the port's to be equal. The CLI's stack
-and alerts verbs wait for the port of `scripts/cli.py`.
+and alerts verbs against a live cluster are in `tests/test_torch_cli.py`.
 """
 
 import importlib
