@@ -247,7 +247,30 @@ a non-zero exit) on any failed check:
    free memory comes back to within 256 MiB. Prints the head's start,
    the join, the client's put, get and GPU task, the deploy to the
    first token, tok/s, each dashboard route's ms and each verb's s;
-16. the `kernels` JSON line (every ported kernel with its numbers), the
+16. parallel: `parallel/` on the card. (a) On a node of the port's runtime
+   (the visible cards its `GPU`s), a `TorchTrainer` gang of one GPU worker
+   per visible card (one on one card), `TorchConfig` NCCL: each builds
+   `ShardingStrategy` by `__graft_entry__._pick_strategy(n)`'s rule (1:
+   every axis 1; 4: fsdp=2 tp=2), its mesh over the gang's process group,
+   places phase 5's GPT-2 125M (same seed, weights and batch) by
+   `param_shardings` and `shard_batch`, and trains it through the sharded
+   step (`models.gpt.sharded_loss`: the flash kernels on the rank's local
+   heads, the fused CE vocab-parallel over tp, `reduce_gradients`, AdamW
+   on the shards) under `TrainStepRunner(mesh=)`: K=1 for 6 steps, then
+   K=4 twice, each K one captured graph. Checks: every loss within 1e-3
+   relative of phase 5's K=1 loss at the same step (5e-3 for a step split
+   over more than one card: bf16 partial sums in another order;
+   `tools/parallel_cards.py` runs (a) alone on four); n_layer forward and
+   2 n_layer backward launches a step in the rank; one miss per K, then
+   hits; the backend and the mesh. Prints step ms beside phase 5's, the
+   miss's seconds, the graph pool, peak memory, launches per step per
+   rank. (b) Two processes on the one card in one gloo group (NCCL
+   refuses two ranks on one device; `tools/gloo_cuda_probe.py` showed
+   gloo runs the step's collectives on CUDA tensors), at tp=2 (the
+   kernels on 6 heads a rank) and at fsdp=2: 3 eager steps each (gloo
+   cannot be captured), each loss within 5e-3 relative of (a)'s, both
+   ranks' losses equal, the launches counted in each rank;
+17. the `kernels` JSON line (every ported kernel with its numbers), the
    card line, and last the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -4420,6 +4443,375 @@ def phase_operator(gpt, model="gpt2_125m", buckets=GPT_BUCKETS,
     return row
 
 
+PARALLEL_DIR = Path(__file__).resolve().parent / "smoke_parallel"
+PARALLEL_K1_STEPS = 6      # steps at K=1, then K=4 calls: 14 steps in all
+PARALLEL_K4_CALLS = 2
+PARALLEL_PAIR_STEPS = 3    # eager steps of each two-rank gloo run
+# a step split over more than one rank (tp or fsdp: bf16 partial sums in
+# another order) against one rank's losses
+PARALLEL_SPLIT_LOSS_RTOL = 5e-3
+PARALLEL_PAIRS = ({"tp": 2}, {"fsdp": 2})  # the two-rank gloo runs
+
+
+def _pick_strategy(n_devices):
+    """`__graft_entry__._pick_strategy` (the JAX package's multi-device
+    dry run): factors of two peeled onto fsdp, tp, sp; the rest is dp, so
+    1 -> every axis 1, 4 -> fsdp=2 tp=2, 8 -> fsdp=2 tp=2 sp=2."""
+    from ray_tpu_torch.parallel import ShardingStrategy
+
+    axes = {"fsdp": 1, "tp": 1, "sp": 1}
+    rem = n_devices
+    for name in ("fsdp", "tp", "sp"):
+        if rem % 2 == 0:
+            axes[name] = 2
+            rem //= 2
+    return ShardingStrategy(dp=rem, **axes)
+
+
+def _sharded_setup(strategy, model, seed, batch, seq, device, capturable):
+    """The `train` phase's GPT-2 (same seed, weights and batch) placed on
+    `strategy`'s mesh over the process group: the parameters by
+    `param_shardings` (this rank's shards), the batch by `shard_batch`
+    (this rank's block), AdamW over the shards and the sharded step."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import logical_axis_rules, shard_batch
+    from ray_tpu_torch.parallel.sharding import param_shardings, shard_params
+
+    mesh = strategy.build_mesh(device=device)
+    cfg = getattr(gpt_mod.GPTConfig, model)(remat=False, max_seq_len=seq)
+    shardings = param_shardings(mesh, gpt_mod.param_logical_axes(cfg),
+                                logical_axis_rules(strategy))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    full = gpt_mod.init_params(cfg, gen, device=device, dtype=torch.float32)
+    net = gpt_mod.GPT.from_params(
+        cfg, shard_params(full, mesh, shardings),
+        attention_fn=partial(flash_attention, causal=True), trainable=True)
+    del full
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (batch, seq + 1))
+    data = {k: v.to_local() for k, v in shard_batch(
+        {"x": toks[:, :-1], "y": toks[:, 1:]}, mesh, strategy).items()}
+    opt = torch.optim.AdamW(net.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4,
+                            capturable=capturable)
+    carry = _adamw_carry(net, opt)
+    params = carry["params"]
+
+    def train_step(carry, data):
+        loss = gpt_mod.sharded_loss(net, data["x"], data["y"], mesh,
+                                    shardings)
+        loss.backward()
+        gpt_mod.reduce_gradients(params, mesh, shardings)
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return carry, gpt_mod.global_loss(loss, mesh)
+
+    local = {n: tuple(p.shape) for n, p in params.items()
+             if n in ("wte", "h0.attn_qkv.weight", "h0.mlp_down.weight")}
+    return dict(mesh=mesh, cfg=cfg, carry=carry, data=data, step=train_step,
+                local_shapes=local, backend=dist.get_backend(),
+                world=dist.get_world_size(), rank=dist.get_rank())
+
+
+def _parallel_loop(config):
+    """`parallel`'s training loop, in each `TorchTrainer` GPU worker; it
+    imports this script there (see `_dist_loop`)."""
+    import chip_smoke
+
+    chip_smoke._parallel_worker(config)
+
+
+def _parallel_worker(config):
+    """One rank of phase 16 (a): `_pick_strategy(world)`'s mesh over the
+    gang's NCCL group, the sharded step through `TrainStepRunner(mesh=)`
+    at K=1 for 6 steps, then K=4 twice; one report at the end."""
+    from ray_tpu_torch import train
+
+    device = config["device"]
+    strategy = _pick_strategy(torch.distributed.get_world_size())
+    t0 = time.perf_counter()
+    s = _sharded_setup(strategy, config["model"], config["seed"],
+                       config["batch"], config["seq"], device,
+                       capturable=device == "cuda")
+    setup_s = time.perf_counter() - t0
+    cfg, mesh, carry = s["cfg"], s["mesh"], s["carry"]
+    tokens = config["batch"] * config["seq"]
+    flops = gpt_mod.flops_per_token(cfg, config["seq"]) * tokens
+    runs, losses = [], []
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # the main path: counts at 0 just before, read just after
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    for k, calls in ((1, PARALLEL_K1_STEPS), (4, PARALLEL_K4_CALLS)):
+        runner = TrainStepRunner(
+            s["step"], steps_per_call=k, mesh=mesh, tokens_per_step=tokens,
+            flops_per_step=flops, peak_flops=PEAK_BF16_FLOPS, device=device)
+        batches = s["data"] if k == 1 else stack_batches([s["data"]] * k)
+        reserved0 = torch.cuda.memory_reserved() if device == "cuda" else 0
+        stats0 = runner.cache_stats()
+        for i in range(calls):
+            t0 = time.perf_counter()
+            carry, loss = runner.run(carry, batches)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            losses.extend(float(x) for x in loss.reshape(-1).tolist())
+            if i == 0 and device == "cuda":
+                torch.cuda.empty_cache()
+                pool_gib = (torch.cuda.memory_reserved() - reserved0) / 2**30
+            runs.append(dict(k=k, miss=i == 0, ms=ms,
+                             pool_gib=pool_gib if device == "cuda" else 0.0))
+        # this runner's share of the process's cache counters
+        runs[-1]["cache"] = {key: n - stats0[key] for key, n in
+                             runner.cache_stats().items()}
+        global_cache().evict(runner._compiled)
+        del runner, batches
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    train.report(dict(
+        losses=losses, runs=runs, fwd_launches=fwd, bwd_launches=bwd,
+        steps=len(losses), setup_s=setup_s, mesh=mesh.shape,
+        local_shapes=s["local_shapes"], backend=s["backend"],
+        world=s["world"], rank=s["rank"],
+        peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                  if device == "cuda" else 0.0)))
+
+
+def _parallel_pair_rank(config_json):
+    """One rank of the two-rank gloo runs on the one card (phase 16 (b)):
+    for each mesh of `config["axes"]`, `PARALLEL_PAIR_STEPS` eager sharded
+    steps (gloo collectives cannot be captured into a graph); the losses
+    and times to `out`."""
+    config = json.loads(config_json)
+    from ray_tpu_torch.parallel import ShardingStrategy
+
+    device = config["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{config['store']}",
+        world_size=2, rank=config["rank"])
+    rows = []
+    try:
+        for axes in config["axes"]:
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            s = _sharded_setup(ShardingStrategy(**axes), config["model"],
+                               config["seed"], config["batch"],
+                               config["seq"], device, capturable=False)
+            carry, losses, ms = s["carry"], [], []
+            # this run's main path: counts at 0 just before, read after
+            flash_attention.launches = 0
+            flash_attention_bwd.launches = 0
+            for _ in range(PARALLEL_PAIR_STEPS):
+                t0 = time.perf_counter()
+                carry, loss = s["step"](carry, s["data"])
+                losses.append(float(loss))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(dict(
+                axes=axes, losses=losses, step_ms=ms, mesh=s["mesh"].shape,
+                local_shapes=s["local_shapes"], backend=s["backend"],
+                fwd_launches=flash_attention.launches,
+                bwd_launches=flash_attention_bwd.launches,
+                peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                          if device == "cuda" else 0.0)))
+            del s, carry
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(f"{config['out']}.{config['rank']}.json", "w") as f:
+        json.dump(rows, f)
+
+
+def _parallel_pair(axes, model, seed, batch, seq, device, timeout=600):
+    """Two processes on the one card, one gloo group, each of the meshes
+    `axes` in turn; per mesh, both ranks' rows."""
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    PARALLEL_DIR.mkdir()
+    out = str(PARALLEL_DIR / "pair")
+    procs = []
+    for rank in range(2):
+        config = dict(rank=rank, axes=list(axes), model=model, seed=seed,
+                      batch=batch, seq=seq, device=device, out=out,
+                      store=str(PARALLEL_DIR / "store"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke._parallel_pair_rank(sys.argv[1])",
+             json.dumps(config)], cwd=Path(__file__).resolve().parent,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    t0 = time.perf_counter()
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    assert all(p.returncode == 0 for p in procs), "\n".join(
+        f"--- rank {r}:\n{log[-3000:]}" for r, log in enumerate(logs))
+    by_rank = []
+    for rank in range(2):
+        with open(f"{out}.{rank}.json") as f:
+            by_rank.append(json.load(f))
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    return [list(rows) for rows in zip(*by_rank)], wall_s
+
+
+def phase_parallel(want_losses, ref_ms, model="gpt2_125m", batch=16,
+                   seq=1024, seed=3, device="cuda"):
+    """Phase 16 (module docstring): (a) the sharded step in a `TorchTrainer`
+    gang of one GPU worker per visible card, NCCL; (b) two ranks on one
+    card over gloo, at tp=2 and at fsdp=2. `want_losses` is the `train`
+    phase's K=1 trajectory, `ref_ms` its graphed step ms at K=1 and K=4."""
+    row = parallel_gang(want_losses, ref_ms, model, batch, seq, seed, device)
+    row["pairs"], row["pairs_wall_s"] = parallel_pairs(
+        row["losses"], model, batch, seq, seed, device)
+    return row
+
+
+def parallel_gang(want_losses, ref_ms, model="gpt2_125m", batch=16,
+                  seq=1024, seed=3, device="cuda", workers=None):
+    """Phase 16 (a); `workers` (default: one per visible card, one on the
+    CPU) sizes the gang."""
+    from ray_tpu_torch import train as train_mod
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+
+    card = card_line() if device == "cuda" else "cpu"
+    n = workers or (torch.cuda.device_count() if device == "cuda" else 1)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    assert not _port_processes(), _port_processes()
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=max(2, n + 1), object_store_memory=256 << 20,
+                       **({} if device == "cuda" else {"num_gpus": n}))
+    try:
+        trainer = train_mod.TorchTrainer(
+            _parallel_loop,
+            train_loop_config=dict(device=device, model=model, batch=batch,
+                                   seq=seq, seed=seed),
+            scaling_config=ScalingConfig(num_workers=n, use_gpu=True),
+            backend_config=train_mod.TorchConfig(
+                distributed="on",
+                platform="cuda" if device == "cuda" else "cpu"),
+            run_config=RunConfig(name="parallel",
+                                 storage_path=str(PARALLEL_DIR)))
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        ray_tpu_torch.shutdown()
+    _assert_clean()
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+
+    m = result.metrics
+    n_layer = getattr(gpt_mod.GPTConfig, model)().n_layer
+    steps = PARALLEL_K1_STEPS + 4 * PARALLEL_K4_CALLS
+    want_backend = "nccl" if device == "cuda" else "gloo"
+    losses = m["losses"]
+    worst = max(abs(g - w) / abs(w) for g, w in zip(losses, want_losses))
+    # one rank runs `train`'s arithmetic; a split one sums bf16 partial
+    # products in another order
+    tol = TRAIN_DIST_LOSS_RTOL if n == 1 else PARALLEL_SPLIT_LOSS_RTOL
+    k1 = [r["ms"] for r in m["runs"] if r["k"] == 1 and not r["miss"]]
+    k4 = [r["ms"] / 4 for r in m["runs"] if r["k"] == 4 and not r["miss"]]
+    miss = {r["k"]: r["ms"] / 1e3 for r in m["runs"] if r["miss"]}
+    pool = {r["k"]: r["pool_gib"] for r in m["runs"] if r["miss"]}
+    row = dict(world=n, mesh=m["mesh"], backend=m["backend"],
+               losses=losses, worst_loss_rel=worst, loss_rtol=tol,
+               fit_s=fit_s, setup_s=m["setup_s"],
+               k1_step_ms=statistics.median(k1), k1_step_ms_all=k1,
+               k4_step_ms=statistics.median(k4), k4_step_ms_all=k4,
+               ref_ms=ref_ms, miss_s=miss, pool_gib=pool,
+               peak_gib=m["peak_gib"], fwd_launches=m["fwd_launches"],
+               bwd_launches=m["bwd_launches"],
+               fwd_per_step_per_rank=m["fwd_launches"] / steps,
+               bwd_per_step_per_rank=m["bwd_launches"] / steps,
+               local_shapes=m["local_shapes"],
+               cache={r["k"]: r["cache"] for r in m["runs"] if "cache" in r})
+    print(f"parallel (a): {n} GPU worker(s), {m['backend']}, mesh "
+          f"{m['mesh']}; losses {[round(x, 4) for x in losses]}, worst rel "
+          f"difference from `train` K=1 {worst:.2e} (tol {tol}); step ms "
+          f"K=1 {row['k1_step_ms']:.2f} (runs {[round(x, 2) for x in k1]}) "
+          f"vs `train` K=1 {ref_ms[0]:.2f}; K=4 {row['k4_step_ms']:.2f} vs "
+          f"{ref_ms[1]:.2f}; miss {miss} s, graph pool {pool} GiB, peak "
+          f"{m['peak_gib']:.2f} GiB; launches per step per rank fwd "
+          f"{row['fwd_per_step_per_rank']:.0f} bwd "
+          f"{row['bwd_per_step_per_rank']:.0f}; cache {row['cache']}; local "
+          f"shapes {m['local_shapes']}; setup {m['setup_s']:.2f} s, fit() "
+          f"{fit_s:.2f} s (card: {card})")
+    assert (m["backend"], m["world"], m["steps"]) == (want_backend, n,
+                                                      steps), m
+    assert m["mesh"] == _pick_strategy(n).mesh_axes(n), m["mesh"]
+    assert all(np.isfinite(losses)) and worst <= tol, \
+        (worst, losses, want_losses[:steps])
+    # the flash kernels on this rank's heads: n_layer forwards a step,
+    # twice that backward kernels
+    per = 1 if device == "cuda" else 0
+    assert m["fwd_launches"] == n_layer * steps * per, m["fwd_launches"]
+    assert m["bwd_launches"] == \
+        n_layer * steps * BWD_KERNELS_PER_CALL * per, m["bwd_launches"]
+    for k, calls in ((1, PARALLEL_K1_STEPS), (4, PARALLEL_K4_CALLS)):
+        assert row["cache"][k] == {"hits": calls - 1, "misses": 1,
+                                   "retraces": 0}, row["cache"]
+    return row
+
+
+def parallel_pairs(losses, model="gpt2_125m", batch=16, seq=1024, seed=3,
+                   device="cuda"):
+    """Phase 16 (b): two ranks on the one card over gloo, eager, each mesh
+    of `PARALLEL_PAIRS` in turn, held to (a)'s `losses`; returns the
+    rows and the wall time."""
+    card = card_line() if device == "cuda" else "cpu"
+    n_layer = getattr(gpt_mod.GPTConfig, model)().n_layer
+    per = 1 if device == "cuda" else 0
+    pairs = []
+    runs, wall_s = _parallel_pair(PARALLEL_PAIRS, model, seed, batch, seq,
+                                  device)
+    for axes, rows in zip(PARALLEL_PAIRS, runs):
+        got = rows[0]["losses"]
+        err = max(abs(g - w) / abs(w) for g, w in zip(got, losses))
+        heads = getattr(gpt_mod.GPTConfig, model)().n_head // \
+            axes.get("tp", 1)
+        pair = dict(axes=axes, losses=got, rel_err=err,
+                    step_ms=[r["step_ms"] for r in rows],
+                    peak_gib=[r["peak_gib"] for r in rows],
+                    local_shapes=rows[0]["local_shapes"],
+                    fwd_launches=[r["fwd_launches"] for r in rows],
+                    bwd_launches=[r["bwd_launches"] for r in rows],
+                    heads_per_rank=heads)
+        pairs.append(pair)
+        print(f"parallel (b) {axes}: two ranks on one card over gloo, "
+              f"{heads} heads a rank; losses {[round(x, 4) for x in got]}, "
+              f"worst rel difference from (a) {err:.2e} (tol "
+              f"{PARALLEL_SPLIT_LOSS_RTOL}); eager step ms by rank "
+              f"{[[round(x, 1) for x in r['step_ms']] for r in rows]}; peak "
+              f"{[round(x, 2) for x in pair['peak_gib']]} GiB; launches fwd "
+              f"{pair['fwd_launches']} bwd {pair['bwd_launches']}; local "
+              f"shapes {pair['local_shapes']} (card: {card})")
+        assert [r["losses"] for r in rows] == [got, got], rows
+        assert err <= PARALLEL_SPLIT_LOSS_RTOL, (axes, got, losses)
+        for r in rows:
+            assert r["backend"] == "gloo" and r["mesh"] == axes, r
+            assert r["fwd_launches"] == n_layer * PARALLEL_PAIR_STEPS * per
+            assert r["bwd_launches"] == \
+                n_layer * PARALLEL_PAIR_STEPS * BWD_KERNELS_PER_CALL * per
+    print(f"parallel (b): both meshes in {wall_s:.1f} s (two processes' "
+          f"start, gloo group, setup and steps)")
+    return pairs, wall_s
+
+
 def _numbers(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}
@@ -4446,7 +4838,7 @@ BWD_DESIGN = (
 
 def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
                  spec, runtime, serve_row, train_dist, train_data, dag,
-                 cluster, operator, ptxas):
+                 cluster, operator, parallel, ptxas):
     """The `kernels` entries: every ported kernel with its numbers. The
     forward at the serving path's largest prefill shape (with the GPT-2
     run's launches per prefill bucket at that bucket's time), the
@@ -4461,7 +4853,9 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
     `TorchTrainer` GPU worker's; `dag`: the fused chain's executes;
     `dag_actor`: the actor graph's GPU actor's; `cluster`: the GPU step's
     worker on the autoscaled node; `operator`: the GPU replica that
-    `serve-deploy` started)."""
+    `serve-deploy` started; `parallel`: the sharded step's GPU worker
+    (rank 0 of the NCCL mesh), and `parallel_pairs` each two-rank gloo
+    run's ranks on the one card)."""
     def at(table, shape):
         return next(r for r in table if r["shape"] == shape)
 
@@ -4512,6 +4906,9 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_dag_actor": dag["actor"]["launches"],
         "launches_cluster": cluster["launches"],
         "launches_operator": operator["launches"],
+        "launches_parallel": parallel["fwd_launches"],
+        "launches_parallel_pairs": {
+            str(p["axes"]): p["fwd_launches"] for p in parallel["pairs"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **_numbers(main_row),
         "at": MAIN_SHAPE,
@@ -4536,6 +4933,9 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         **graphed_launches("bwd_launches"),
         "launches_train_dist": train_dist["bwd_launches"],
         "launches_train_data": train_data["bwd_launches"],
+        "launches_parallel": parallel["bwd_launches"],
+        "launches_parallel_pairs": {
+            str(p["axes"]): p["bwd_launches"] for p in parallel["pairs"]},
         "kernels_per_call": BWD_KERNELS_PER_CALL,
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in bwd_rows),
@@ -4612,17 +5012,21 @@ def main() -> int:
     # the operator surface: the CLI's verbs, a client:// driver, GPT-2
     # deployed by `serve-deploy`, the dashboard
     operator = phase_operator(gpt_ref)
+    # parallel/: the `train` cell through a sharded step on a mesh, in a
+    # TorchTrainer gang (NCCL), then two ranks on the card over gloo
+    parallel = phase_parallel(k1["losses"], (k1["step_ms"], k4["step_ms"]))
 
     kernels = kernels_line(rows, bwd_rows, train, train_llama, train_long,
                            gpt, llama, spec, runtime, serve_row, train_dist,
-                           train_data, dag, cluster, operator, ptxas)
+                           train_data, dag, cluster, operator, parallel,
+                           ptxas)
     print(json.dumps({"build_s": build_s, "train": train,
                       "train_llama": train_llama, "train_long": train_long,
                       "engines": [gpt, llama], "engine_spec": spec,
                       "runtime": runtime, "serve": serve_row,
                       "train_dist": train_dist, "train_data": train_data,
                       "dag": dag, "soak": soak, "cluster": cluster,
-                      "operator": operator}))
+                      "operator": operator, "parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
           f"{build_s:.1f} s of it")

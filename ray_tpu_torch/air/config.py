@@ -8,8 +8,10 @@ purpose:
 - `ScalingConfig.use_gpu` / `gpus_per_worker` take the place of
   `use_tpu` / `tpus_per_worker`: a worker's accelerators are the runtime's
   `GPU` resource (CUDA devices). `topology`, `num_slices`, `mesh_axes` and
-  `mesh_shape` are carried as in the JAX package; the mesh fields are not
-  read until the port has a device mesh.
+  `mesh_shape` are carried as in the JAX package, which reads the mesh
+  fields nowhere either: a training loop builds its mesh over the
+  workers' process group (`ray_tpu_torch.parallel.ShardingStrategy.
+  build_mesh`).
 - `RunConfig`'s default storage is ``~/ray_tpu_torch_results`` (the JAX
   package's is ``~/ray_tpu_results``; both read ``RAY_TPU_RESULTS_DIR``
   first), so runs of the two packages never share a trial directory.

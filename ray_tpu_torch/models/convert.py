@@ -18,6 +18,12 @@ Projections and embeddings are stored in `dtype` (default `cfg.dtype`):
 Flax casts each to `cfg.dtype` at use, so a forward sees the same
 values. Norm parameters, which Flax reads in f32, stay in
 `cfg.param_dtype`.
+
+Given a mesh and the parameters' placements (`parallel.sharding.
+param_shardings`), the GPT parameters come back as DTensors on the mesh,
+each rank holding its shards: the sharded model's parameters. Their
+layout is the JAX one (the fused qkv's rows are not permuted), so a
+gathered DTensor is the Flax array (transposed for a Dense kernel).
 """
 
 from __future__ import annotations
@@ -51,9 +57,16 @@ def _norm(out, prefix, node, device, dtype, bias=True):
 
 
 def gpt_params_from_jax(tree, cfg, device=None,
-                        dtype: Optional[torch.dtype] = None
-                        ) -> Dict[str, torch.Tensor]:
-    """Port params (the `GPT.from_params` dict) from a Flax GPT tree."""
+                        dtype: Optional[torch.dtype] = None, *, mesh=None,
+                        shardings=None) -> Dict[str, torch.Tensor]:
+    """Port params (the `GPT.from_params` dict) from a Flax GPT tree; with
+    `mesh` and `shardings`, DTensors on the mesh's device (module
+    docstring)."""
+    if mesh is not None:
+        from ray_tpu_torch.parallel.sharding import shard_params
+
+        return shard_params(gpt_params_from_jax(tree, cfg, "cpu", dtype),
+                            mesh, shardings)
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     p = unboxed_params(tree)

@@ -28,6 +28,18 @@ Numerics follow the Flax model:
 
 Parameter names follow the Flax tree (`h{i}.attn_qkv.weight` for
 `h{i}/attn_qkv/kernel`, `ln_1.scale`, ...).
+
+Sharded over a mesh (`sharded_loss`), the model holds this rank's shards
+of the parameters (`GPT.from_params` with DTensors from
+`parallel.sharding.shard_params`, their layouts from `param_shardings`
+over `param_logical_axes`, the Flax annotations) and runs the forward of
+a JAX `shard_map` body of the GSPMD program: FSDP's `embed` shards
+gathered at use (their gradients reduce-scattered back), Megatron column
+and row splits over `tp` (`mlp_up`/`mlp_down`, `attn_out`, the fused qkv
+gathered and sliced to this rank's heads, the vocab-parallel embedding
+and loss), and the sequence over `sp` through Ulysses around the
+attention. The attention is the model's `attention_fn` (the flash
+kernel) on this rank's heads.
 """
 
 from __future__ import annotations
@@ -42,8 +54,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.compile_cache import graphing as _graphing
-from ray_tpu_torch.parallel.ring_attention import full_attention
+from ray_tpu_torch.parallel.ring_attention import (full_attention,
+                                                   ulysses_local)
+from ray_tpu_torch.parallel.sharding import (ShardingStrategy,
+                                              logical_axis_rules,
+                                              logical_to_mesh,
+                                              sharding_constraint)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,10 +202,26 @@ def _from_params(cls, config, params: Dict[str, torch.Tensor],
     their storage: two models built from one dict hold one copy of the
     weights (and an optimizer step on one is seen by the other). By
     default an inference model (frozen, eval mode); `trainable=True`
-    gives one whose parameters require grad, in train mode."""
+    gives one whose parameters require grad, in train mode.
+
+    DTensors (`parallel.sharding.shard_params`) give a model of this
+    rank's shards: each parameter is the DTensor's local tensor, which
+    only `sharded_loss` knows how to run."""
+    from torch.distributed.tensor import DTensor
+
     with torch.device("meta"):
         net = cls(config, attention_fn)
-    net.load_state_dict(params, assign=True)
+    if any(isinstance(p, DTensor) for p in params.values()):
+        want = set(net.state_dict())
+        if set(params) != want:
+            raise KeyError(f"from_params: missing {sorted(want - set(params))}"
+                           f", unexpected {sorted(set(params) - want)}")
+        for name, p in params.items():
+            mod, _, leaf = name.rpartition(".")
+            setattr(net.get_submodule(mod), leaf,
+                    nn.Parameter(p.to_local(), requires_grad=False))
+    else:
+        net.load_state_dict(params, assign=True)
     return net.requires_grad_(trainable).train(trainable)
 
 
@@ -290,6 +324,28 @@ def init_params(cfg: GPTConfig, generator: torch.Generator,
     return p
 
 
+def param_logical_axes(cfg: GPTConfig) -> Dict[str, tuple]:
+    """Each parameter's logical axes, in the torch tensor's dimension
+    order: the `nn.with_partitioning` annotations of the Flax model (a
+    Dense kernel's (in, out) axes reversed for the [out, in] weight, its
+    bias the last of them; norms ("norm",); `wte` ("vocab", "embed"),
+    `wpe` (None, "embed")). `parallel.sharding.param_shardings` maps them
+    through a strategy's rules."""
+    axes = {"wte": ("vocab", "embed"), "wpe": (None, "embed"),
+            "ln_f.scale": ("norm",), "ln_f.bias": ("norm",)}
+    for i in range(cfg.n_layer):
+        for name, kernel in (("attn_qkv", ("embed", "qkv")),
+                             ("attn_out", ("heads", "embed")),
+                             ("mlp_up", ("embed", "mlp")),
+                             ("mlp_down", ("mlp", "embed"))):
+            axes[f"h{i}.{name}.weight"] = kernel[::-1]
+            axes[f"h{i}.{name}.bias"] = (kernel[-1],)
+        for name in ("ln_1", "ln_2"):
+            axes[f"h{i}.{name}.scale"] = ("norm",)
+            axes[f"h{i}.{name}.bias"] = ("norm",)
+    return axes
+
+
 def _norm_params(prefix, d, dtype, device, bias=True):
     p = {f"{prefix}.scale": torch.ones(d, dtype=dtype, device=device)}
     if bias:
@@ -338,6 +394,192 @@ def chunked_cross_entropy(hidden, wte, targets, ignore_index: int = -1,
             if torch.is_grad_enabled() else _chunk_nll(*args)
         total, count = total + s, count + c
     return total / torch.clamp(count, min=1.0)
+
+
+# -- sharded forward (a mesh) ----------------------------------------------
+
+# the axes a batch's tokens are split over: a replicated parameter's
+# gradient is summed over them (`reduce_gradients`)
+DATA_AXES = ("dcn", "dp", "fsdp", "sp")
+
+
+class _Spmd:
+    """This rank's place in `mesh` for the sharded forward: the groups and
+    offsets of its `tp` and `sp` axes, and each parameter's placements."""
+
+    def __init__(self, mesh, shardings, cfg: GPTConfig):
+        self.mesh, self.shardings = mesh, shardings
+        self.tp = mesh.axis_size("tp")
+        self.tp_rank = mesh.axis_index("tp")
+        self.sp = mesh.axis_size("sp")
+        self.sp_rank = mesh.axis_index("sp")
+        self.data_axes = tuple(a for a in DATA_AXES if a in mesh.shape)
+        size = mesh.shape.get
+        self.rules = logical_axis_rules(ShardingStrategy(
+            dp=size("dp", 1), fsdp=size("fsdp", 1), tp=self.tp, sp=self.sp,
+            pp=size("pp", 1), ep=size("ep", 1), dcn_dp=size("dcn", 1)))
+        if cfg.n_head % self.tp:
+            raise ValueError(f"GPT: {cfg.n_head} heads do not split over "
+                             f"tp={self.tp}")
+        self.heads = cfg.n_head // self.tp
+        if self.heads % self.sp:
+            raise ValueError(
+                f"GPT: sequence parallelism runs Ulysses over this rank's "
+                f"{self.heads} heads, which sp={self.sp} does not divide")
+        # rows of the fused qkv ([3d, d], the JAX layout) holding this
+        # rank's heads of q, k and v
+        width = self.heads * (cfg.d_model // cfg.n_head)
+        self.qkv_rows = None if self.tp == 1 else torch.cat([
+            torch.arange(width, device=mesh.device_type)
+            + j * cfg.d_model + self.tp_rank * width for j in range(3)])
+
+    def param(self, name, p, dtype, keep_tp=True):
+        """`p` (this rank's shard) in `dtype`, gathered over every mesh axis
+        that splits it but `tp` (kept when `keep_tp`): innermost first."""
+        p = p.to(dtype)
+        pl = self.shardings[name]
+        for i in reversed(range(len(pl))):
+            axis = self.mesh.axis_names[i]
+            if pl[i].is_shard() and not (keep_tp and axis == "tp"):
+                p = collectives.allgather(p, axis, gather_dim=pl[i].dim,
+                                          mesh=self.mesh)
+        return p
+
+    def constrain(self, x, logical):
+        """`nn.with_logical_constraint`: the identity on a local shard,
+        which the forward keeps in the constrained layout."""
+        return sharding_constraint(x, self.mesh,
+                                   logical_to_mesh(logical, self.rules))
+
+    def tp_input(self, x):
+        return collectives.replicated_input(x, "tp", mesh=self.mesh)
+
+    def row_linear(self, x, w, b):
+        """A row-parallel Dense: the partial products summed over tp, then
+        the bias (one rank's Dense when tp is 1)."""
+        if self.tp == 1:
+            return F.linear(x, w, b)
+        return collectives.allreduce(F.linear(x, w), "tp",
+                                     mesh=self.mesh) + b
+
+    def embed(self, wte, tokens):
+        """The vocab-parallel lookup: each rank's rows, summed over tp."""
+        if self.tp == 1:
+            return wte[tokens]
+        local = tokens - self.tp_rank * wte.shape[0]
+        hit = (local >= 0) & (local < wte.shape[0])
+        x = wte[torch.clamp(local, 0, wte.shape[0] - 1)] * \
+            hit[..., None].to(wte.dtype)
+        return collectives.allreduce(x, "tp", mesh=self.mesh)
+
+    def attend(self, fn, q, k, v):
+        if self.sp == 1:
+            return fn(q, k, v)
+        return ulysses_local(q, k, v, mesh=self.mesh, attention_fn=fn)
+
+
+def _sharded_block(blk: Block, spmd: _Spmd, prefix: str, x):
+    cfg, dt = blk.config, blk.config.dtype
+    b, t = x.shape[0], x.shape[1]
+    hd = cfg.d_model // cfg.n_head
+
+    def param(name, keep_tp=True):
+        mod, _, leaf = name.rpartition(".")
+        return spmd.param(prefix + name,
+                          getattr(blk.get_submodule(mod), leaf), dt, keep_tp)
+
+    # the fused qkv, gathered whole and sliced to this rank's heads: an even
+    # split of its 3d rows would not give a rank whole heads of q, k and v
+    w, bias = (param(f"attn_qkv.{n}", keep_tp=False)
+               for n in ("weight", "bias"))
+    if spmd.qkv_rows is not None:
+        w = w.index_select(0, spmd.qkv_rows)
+        bias = bias.index_select(0, spmd.qkv_rows)
+    qkv = F.linear(spmd.tp_input(blk.ln_1(x)), w, bias)
+    q, k, v = (spmd.constrain(y.reshape(b, t, spmd.heads, hd),
+                              ("batch", "seq", "heads", None))
+               for y in qkv.split(spmd.heads * hd, dim=-1))
+    attend = blk.attention_fn or partial(full_attention, causal=True)
+    att = spmd.attend(attend, q, k, v).reshape(b, t, spmd.heads * hd)
+    x = x + spmd.row_linear(att, param("attn_out.weight"),
+                            param("attn_out.bias"))
+    h = spmd.tp_input(blk.ln_2(x))
+    h = F.gelu(F.linear(h, param("mlp_up.weight"), param("mlp_up.bias")),
+               approximate="tanh")
+    x = x + spmd.row_linear(h, param("mlp_down.weight"),
+                            param("mlp_down.bias"))
+    return spmd.constrain(x, ("batch", "seq", "embed"))
+
+
+def sharded_hidden(model: GPT, tokens, mesh, shardings):
+    """The sharded forward up to `ln_f` on this rank's token block
+    [B / data ranks, T / sp] (module docstring): (hidden [B_l, T_l, D],
+    this rank's wte rows, the head's weight, and this rank's `_Spmd`).
+    No dropout."""
+    cfg = model.config
+    if cfg.dropout > 0 and model.training:
+        raise NotImplementedError("GPT: the sharded forward has no dropout")
+    spmd = _Spmd(mesh, shardings, cfg)
+    t = tokens.shape[1]
+    # the tied head takes wte as it is stored (the fused CE casts it), so
+    # that its gradient is summed with the embedding's in the master dtype
+    # as on one device
+    wte = spmd.param("wte", model.wte, model.wte.dtype)
+    wpe = spmd.param("wpe", model.wpe, cfg.dtype)
+    # the sequence block's positions are its global ones
+    off = spmd.sp_rank * t
+    x = spmd.embed(wte.to(cfg.dtype), tokens) + wpe[None, off:off + t]
+    x = spmd.constrain(x, ("batch", "seq", "embed"))
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, blk in enumerate(model.blocks()):
+        fn = partial(_sharded_block, blk, spmd, f"h{i}.")
+        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+    return model.ln_f(x), wte, spmd
+
+
+def sharded_loss(model: GPT, tokens, targets, mesh, shardings,
+                 ignore_index: int = -1):
+    """This rank's share of the mean token NLL of the global batch under
+    `mesh` (the JAX sharded step's loss is the sum of the shares over the
+    data axes: `global_loss`), through the fused LM-head loss, vocab-
+    parallel over tp. `tokens`/`targets` are this rank's blocks;
+    `shardings` the parameters' placements (`param_shardings`). After
+    `backward`, `reduce_gradients` completes the gradients."""
+    from ray_tpu_torch.ops.fused_ce import fused_cross_entropy
+
+    hidden, wte, spmd = sharded_hidden(model, tokens, mesh, shardings)
+    return fused_cross_entropy(
+        spmd.tp_input(hidden), wte, targets, ignore_index,
+        vocab_group=mesh.group("tp"),
+        vocab_start=spmd.tp_rank * wte.shape[0],
+        count_group=mesh.group(spmd.data_axes))
+
+
+def global_loss(loss, mesh):
+    """The global batch's loss from this rank's share (no gradient)."""
+    axes = tuple(a for a in DATA_AXES if a in mesh.shape)
+    return collectives.allreduce(loss.detach(), axes, mesh=mesh)
+
+
+def reduce_gradients(params: Dict[str, torch.Tensor], mesh, shardings):
+    """Sum each parameter's gradient over the data axes it is replicated
+    on, one all-reduce of a flat bucket per set of axes (the axes that
+    split it were summed by its gather's reduce-scatter). Parameters
+    without a gradient are skipped."""
+    buckets: Dict[tuple, list] = {}
+    for name, p in params.items():
+        if p.grad is None:
+            continue
+        pl = shardings[name]
+        split = {mesh.axis_names[i] for i, x in enumerate(pl) if x.is_shard()}
+        axes = tuple(a for a in DATA_AXES if a in mesh.shape and a not in split)
+        if mesh.group(axes) is not None:
+            buckets.setdefault(axes, []).append(p)
+    for axes, ps in buckets.items():
+        flat = torch.cat([p.grad.reshape(-1) for p in ps])
+        torch.distributed.all_reduce(flat, group=mesh.group(axes))
+        for p, g in zip(ps, flat.split([p.numel() for p in ps])):
+            p.grad = g.view_as(p)
 
 
 # -- decode path (serve.llm) ----------------------------------------------

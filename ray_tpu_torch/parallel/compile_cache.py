@@ -60,8 +60,15 @@ output's place, so a caller that feeds the returned carry into the next
 call passes the captured addresses. As in JAX, after the call the
 donated input is not the caller's to reuse; the returned carry is. A
 donated argument with no paired output is only captured by address. On
-the CPU donation has no effect. ``mesh`` is not supported yet (the
-sharded plane comes with ROADMAP S5) and raises.
+the CPU donation has no effect.
+
+``mesh`` (a `parallel.mesh.Mesh`) is part of the key, as in the JAX
+cache: its axis names and sizes and its ranks. A sharded step is a
+function over this rank's local shards whose collectives run over the
+mesh's process groups (`parallel.collectives`); on the card they are
+issued on the current stream and captured into the graph with the rest
+of the step (NCCL), and a replay runs them again. A collective that
+cannot be captured (gloo) fails the capture, which raises as any other.
 
 Kernel launch counters (`ray_tpu_torch.ops.LAUNCH_COUNTERS`) keep
 meaning kernel executions: the eager run counts what it launches; a
@@ -170,6 +177,18 @@ def _leaf_key(leaf: Any):
     if isinstance(leaf, torch.Tensor):
         return ("aval", leaf.shape, leaf.dtype, leaf.device)
     return ("const", type(leaf).__name__, repr(leaf))
+
+
+def _mesh_key(mesh) -> Optional[tuple]:
+    """A mesh's axis names and sizes and its ranks (the JAX key's shape and
+    devices); any other object by its repr."""
+    if mesh is None:
+        return None
+    shape = getattr(mesh, "shape", None)
+    if isinstance(shape, dict):
+        return (tuple(shape.items()),
+                tuple(int(r) for r in mesh.devices.ravel().tolist()))
+    return (repr(mesh),)
 
 
 def _mode_key() -> Tuple[bool, bool]:
@@ -469,8 +488,8 @@ class ExecutableCache:
     def lookup(self, fn: Callable, args: tuple, kwargs: dict, *,
                donate_argnums: Tuple[int, ...] = (),
                static_argnums: Tuple[int, ...] = (),
-               live_argnums: Tuple[int, ...] = (), device=None, pool=None,
-               on_retrace: str = "warn"):
+               live_argnums: Tuple[int, ...] = (), mesh=None, device=None,
+               pool=None, on_retrace: str = "warn"):
         """Return (entry, leaves, out) for this abstract call signature.
         ``entry(args, kwargs, leaves)`` runs the call; ``out`` is
         `_NOT_RUN` unless this lookup made a graph entry, whose eager
@@ -480,8 +499,8 @@ class ExecutableCache:
         struct = _flatten((dyn, kwargs), leaves)
         avals = tuple(_leaf_key(leaf) for leaf in leaves)
         fn_key = (id(fn), getattr(fn, "__qualname__", None))
-        key = (fn_key, struct, avals, statics, tuple(live_argnums),
-               tuple(donate_argnums), _mode_key())
+        key = (fn_key, struct, avals, _mesh_key(mesh), statics,
+               tuple(live_argnums), tuple(donate_argnums), _mode_key())
         sig = (struct, avals, statics)
         with self._lock:
             entry = self._entries.get(key)
@@ -559,13 +578,6 @@ def _metrics_text() -> str:
 _metrics.DEFAULT_REGISTRY.register_callback("compile_cache", _metrics_text)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "ray_tpu_torch: compiled_step/fold_steps take no mesh yet; "
-            "sharded steps come with the port of parallel/ (ROADMAP S5)")
-
-
 def compiled_step(fn: Optional[Callable] = None, *,
                   donate_argnums: Tuple[int, ...] = (),
                   static_argnums: Tuple[int, ...] = (),
@@ -584,7 +596,6 @@ def compiled_step(fn: Optional[Callable] = None, *,
     memory pool. The wrapper exposes ``.cache`` and ``.stats`` for tests
     and counters, and ``.__wrapped__``.
     """
-    _no_mesh(mesh)
     if fn is None:
         return functools.partial(
             compiled_step, donate_argnums=donate_argnums,
@@ -595,8 +606,8 @@ def compiled_step(fn: Optional[Callable] = None, *,
     fn_name = getattr(fn, "__name__", "step")
     opts = dict(donate_argnums=tuple(donate_argnums),
                 static_argnums=tuple(static_argnums),
-                live_argnums=tuple(live_argnums), device=device, pool=pool,
-                on_retrace=on_retrace)
+                live_argnums=tuple(live_argnums), mesh=mesh, device=device,
+                pool=pool, on_retrace=on_retrace)
 
     def call(args, kwargs):
         entry, leaves, out = use_cache.lookup(fn, args, kwargs, **opts)

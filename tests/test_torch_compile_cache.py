@@ -316,10 +316,28 @@ def test_static_argnums_keyword_form_and_positions():
 
 
 def test_mesh_is_not_supported_yet():
-    with pytest.raises(NotImplementedError, match="S5"):
-        tcc.compiled_step(_scaled, mesh=object())
-    with pytest.raises(NotImplementedError, match="S5"):
-        tcc.fold_steps(_sgd, 2, mesh=object())
+    """`mesh=` is accepted now and keyed, as in the JAX cache: its axis
+    sizes and ranks (a mesh of the same shape and ranks hits, another one
+    misses without a retrace); `fold_steps` takes it too.
+    `tests/test_torch_parallel.py` runs it on real meshes of ranks."""
+    import types
+
+    import numpy as np
+
+    def mesh(axes, ranks):
+        return types.SimpleNamespace(shape=axes, devices=np.asarray(ranks))
+
+    a, a2 = mesh({"dp": 2}, [0, 1]), mesh({"dp": 2}, [0, 1])
+    b = mesh({"fsdp": 2}, [0, 1])
+    assert tcc._mesh_key(a) == tcc._mesh_key(a2) != tcc._mesh_key(b)
+    assert tcc._mesh_key(None) is None
+    cache = tcc.ExecutableCache()
+    x = torch.ones(3)
+    for m in (a, a2, b):
+        tcc.compiled_step(_scaled, mesh=m, cache=cache)(x, 2.0)
+    assert cache.stats.as_dict() == {"hits": 1, "misses": 2, "retraces": 0}
+    multi = tcc.fold_steps(_sgd, 2, mesh=a, cache=cache)
+    assert multi.steps_per_call == 2
     tcc.compiled_step(_scaled, mesh=None)  # None is the default
 
 

@@ -18,7 +18,9 @@ the autoscaler (a GPU node launched for a num_gpus=1 task and retired
 once idle, the card's memory back), and the operator CLI (a head started
 with no `--resources` detects the card; a `client://` driver puts a CUDA
 tensor through the client server and holds the kernel in a num_gpus=1
-task against its plain version).
+task against its plain version), and `parallel/` (a one-rank NCCL mesh
+step of the tiny GPT through `TrainStepRunner(mesh=)` against the same
+step without a mesh, two gloo ranks sharing the card at tp=2).
 
 Every test here needs an NVIDIA GPU and `nvcc` and skips without them.
 On a machine with a card (and no JAX), run them with
@@ -1365,3 +1367,104 @@ def test_cli_head_detects_the_card_and_a_client_task_runs_the_kernel(
             server.terminate()
             server.wait(timeout=30)
         run(["stop"])
+
+
+def _tiny_sharded(strategy, seed=5, batch=4, seq=64):
+    """The tiny GPT (bf16 compute, f32 masters) placed on `strategy`'s mesh
+    of the current group, through `chip_smoke._sharded_setup`."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke._sharded_setup(strategy, "tiny", seed, batch, seq,
+                                     "cuda", capturable=True)
+
+
+def test_one_rank_nccl_mesh_step_matches_the_unsharded_step(cuda,
+                                                            tmp_path):
+    """A one-rank NCCL mesh: the tiny GPT's sharded step captured by
+    `TrainStepRunner(mesh=)` (one miss, then replays) gives the losses of
+    the same step without a mesh (the plain model on the same weights and
+    batch, also graphed), and launches the flash kernels per step."""
+    import torch.distributed as dist
+    from functools import partial
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.ops.fused_ce import fused_cross_entropy
+    from ray_tpu_torch.parallel import ShardingStrategy, global_cache
+    from ray_tpu_torch.train import TrainStepRunner
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        s = _tiny_sharded(ShardingStrategy())
+        assert s["mesh"].shape == {"dp": 1} and s["backend"] == "nccl"
+        runner = TrainStepRunner(s["step"], mesh=s["mesh"], device="cuda")
+        stats0 = runner.cache_stats()  # the process's cache: its history
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        carry, got = s["carry"], []
+        for _ in range(3):
+            carry, loss = runner.run(carry, s["data"])
+            got.append(float(loss))
+        n_layer = s["cfg"].n_layer
+        assert flash_attention.launches == 3 * n_layer
+        assert flash_attention_bwd.launches == \
+            3 * n_layer * BWD_KERNELS_PER_CALL
+        stats = runner.cache_stats()
+        assert {k: stats[k] - stats0[k] for k in stats} == \
+            {"hits": 2, "misses": 1, "retraces": 0}
+        global_cache().evict(runner._compiled)
+    finally:
+        dist.destroy_process_group()
+
+    # the same weights and batch through the unsharded model
+    cfg = s["cfg"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    net = gpt.GPT.from_params(
+        cfg, gpt.init_params(cfg, gen, device="cuda", dtype=torch.float32),
+        attention_fn=partial(flash_attention, causal=True), trainable=True)
+    opt = torch.optim.AdamW(net.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4, capturable=True)
+    import chip_smoke
+
+    carry = chip_smoke._adamw_carry(net, opt)
+
+    def step(carry, data):
+        hidden, wte = net(data["x"], return_hidden=True)
+        loss = fused_cross_entropy(hidden, wte, data["y"])
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return carry, loss.detach()
+
+    runner = TrainStepRunner(step, device="cuda")
+    want = []
+    for _ in range(3):
+        carry, loss = runner.run(carry, s["data"])
+        want.append(float(loss))
+    global_cache().evict(runner._compiled)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_two_gloo_ranks_share_the_card_at_tp2(cuda):
+    """Two processes on the one card in one gloo group: at tp=2 (the
+    kernels on one head a rank) their eager sharded steps give the losses
+    of a dp=2 pair (each rank half the batch, every head) on the same
+    weights and batch, within `chip_smoke`'s pair tolerance."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    (one, two), _ = chip_smoke._parallel_pair([{"dp": 2}, {"tp": 2}],
+                                              "tiny", 5, 4, 64, "cuda")
+    assert one[0]["losses"] == one[1]["losses"]
+    assert two[0]["losses"] == two[1]["losses"]
+    np.testing.assert_allclose(two[0]["losses"], one[0]["losses"],
+                               rtol=chip_smoke.PARALLEL_SPLIT_LOSS_RTOL)
+    n = chip_smoke.PARALLEL_PAIR_STEPS * 2  # the tiny GPT's two layers
+    assert [r["fwd_launches"] for r in two] == [n, n]
+    assert two[0]["local_shapes"]["h0.attn_qkv.weight"] == [96, 64]

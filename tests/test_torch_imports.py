@@ -44,6 +44,9 @@ def _modules():
 def test_import_leaves_no_jax_or_ray_tpu_in_sys_modules():
     mods = list(_modules())
     assert "ray_tpu_torch.serve.llm.engine" in mods
+    assert {f"ray_tpu_torch.parallel.{m}" for m in (
+        "mesh", "sharding", "collectives", "distributed", "pipeline", "moe",
+        "ring_attention")} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
