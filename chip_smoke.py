@@ -19,14 +19,16 @@ a non-zero exit) on any failed check:
    the card at the serving shapes (GPT-2 prefill, Llama GQA, non-causal,
    the long-T regime, f32/fp16, head_dim 16/32/128) and the training
    paths' shapes (GPT-2 B=16 T=1024, Llama GQA 12:4 B=16 T=1024, B=4
-   T=4096), with the kernel's time, the plain version's, a PyTorch library
+   T=4096, MoE-GPT B=8 T=1024, BERT B=32 T=512 non-causal), with the
+   kernel's time, the plain version's, a PyTorch library
    call's (a yardstick only), the least time the card could take, and the
    route that ran (`sm90`: wgmma + TMA ring, bf16/fp16; `f32`: CUDA
    cores);
 4. backward kernels: `flash_attention_bwd` (dQ and dK/dV) against its
    plain version at the training shapes (GPT-2 B=16 T=1024, Llama GQA
    12:4, long context B=4 T=4096, non-causal, ragged T, fp16 d=128, f32
-   d=16/32), with the same four times (the library's is SDPA forward +
+   d=16/32, MoE-GPT B=8 T=1024, BERT B=32 T=512 non-causal), with the same
+   four times (the library's is SDPA forward +
    backward minus SDPA forward);
 5. training: GPT-2 125M at full width and depth (bf16 compute, f32
    master weights, remat off), B=16, T=1024, flash attention, fused
@@ -269,8 +271,39 @@ a non-zero exit) on any failed check:
    gloo runs the step's collectives on CUDA tensors), at tp=2 (the
    kernels on 6 heads a rank) and at fsdp=2: 3 eager steps each (gloo
    cannot be captured), each loss within 5e-3 relative of (a)'s, both
-   ranks' losses equal, the launches counted in each rank;
-17. the `kernels` JSON line (every ported kernel with its numbers), the
+   ranks' losses equal, the launches counted in each rank. After its 3
+   steps the fsdp=2 pair saves its carry (the parameters and AdamW's
+   state as DTensors, each rank its half of every leaf fsdp splits)
+   through `array_checkpoint.save_to_checkpoint`, persisted as the train
+   session does (rank 0's directory the checkpoint, rank 1's its
+   `_shards/rank_1`), then takes a 4th step. One more process restores the
+   checkpoint onto a {"dp": 1} mesh on the card (a gloo group of one),
+   copies it into its live carry and takes one step. Checks: rank 1's
+   directory holds a shard of every leaf fsdp splits; each saved block's
+   checksum over the restored values equals the saver's; the step's loss
+   within 5e-3 relative of the pair's 4th; the launches; no process or
+   segment left. Prints the save and restore seconds and the bytes each
+   rank wrote;
+17. models: the other model families at their published widths (bf16
+   compute, f32 master weights from a torch.Generator seed, data from
+   numpy, AdamW(3e-4, weight decay 1e-4), remat off): MoE-GPT (GPT-2
+   125M widths, 8 experts, the dense einsum dispatch) at B=8, T=1024
+   with the causal flash kernels; BERT-base MLM (15 % of the tokens
+   corrupted 80/10/10, two segments) at B=32, T=512 with the non-causal
+   flash kernels; ViT-B/16 at B=64, 224x224, 1000 classes (plain
+   einsum attention); ResNet-50 at B=64, 224x224, 1000 classes,
+   BatchNorm in train mode. Each takes 3 eager steps on one fixed batch,
+   then the same steps from the same weights through `TrainStepRunner`
+   at K=1 (AdamW capturable in both runs) (the first call the miss: an eager step, then the capture; then
+   replays). Checks: every graphed loss within 1e-3 relative of eager's
+   at its step; all finite, the last below the first; one miss, then
+   hits; MoE-GPT and BERT launch the forward kernel 12 times and the
+   backward kernels 24 times a step, eager and graphed, on the route
+   `sm90`; ResNet's running statistics all moved, and the graphed run's
+   equal eager's within 1e-3 of each one's largest magnitude. Prints
+   per model the step ms eager and graphed, samples/s, peak memory, the
+   miss's seconds and the launches;
+18. the `kernels` JSON line (every ported kernel with its numbers), the
    card line, and last the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -722,12 +755,19 @@ KERNEL_SHAPES = [
     ("llama GQA 12:4 B=16 T=1024", 16, 1024, 12, 4, 64, torch.bfloat16,
      True),
     ("long B=4 T=4096", 4, 4096, 12, 12, 64, torch.bfloat16, True),
+    ("moe-gpt B=8 T=1024", 8, 1024, 12, 12, 64, torch.bfloat16, True),
+    ("bert MLM B=32 T=512 non-causal", 32, 512, 12, 12, 64, torch.bfloat16,
+     False),
 ]
 MAIN_SHAPE = "gpt2 prefill T=1024"
 TRAIN_SHAPE = "gpt2 train B=16 T=1024"
 # the shapes the train_llama and train_long paths give both kernels
 TRAIN_LLAMA_SHAPE = "llama GQA 12:4 B=16 T=1024"
 TRAIN_LONG_SHAPE = "long B=4 T=4096"
+# the shapes the `models` phase gives both kernels: MoE-GPT (causal) and
+# BERT (non-causal) inside a training step
+MOE_SHAPE = "moe-gpt B=8 T=1024"
+BERT_SHAPE = "bert MLM B=32 T=512 non-causal"
 BWD_SHAPES = [
     # (label, b, t, h, h_kv, d, dtype, causal)
     (TRAIN_SHAPE, 16, 1024, 12, 12, 64, torch.bfloat16, True),
@@ -739,6 +779,8 @@ BWD_SHAPES = [
     ("fp16 d=128 B=2 T=777", 2, 777, 8, 2, 128, torch.float16, True),
     ("f32 d=32 B=2 T=300", 2, 300, 4, 2, 32, torch.float32, True),
     ("f32 d=16 B=1 T=50", 1, 50, 4, 2, 16, torch.float32, False),
+    (MOE_SHAPE, 8, 1024, 12, 12, 64, torch.bfloat16, True),
+    (BERT_SHAPE, 32, 512, 12, 12, 64, torch.bfloat16, False),
 ]
 
 
@@ -4451,6 +4493,7 @@ PARALLEL_PAIR_STEPS = 3    # eager steps of each two-rank gloo run
 # another order) against one rank's losses
 PARALLEL_SPLIT_LOSS_RTOL = 5e-3
 PARALLEL_PAIRS = ({"tp": 2}, {"fsdp": 2})  # the two-rank gloo runs
+PARALLEL_CKPT_AXES = {"fsdp": 2}  # the pair that saves a sharded checkpoint
 
 
 def _pick_strategy(n_devices):
@@ -4510,8 +4553,40 @@ def _sharded_setup(strategy, model, seed, batch, seq, device, capturable):
     local = {n: tuple(p.shape) for n, p in params.items()
              if n in ("wte", "h0.attn_qkv.weight", "h0.mlp_down.weight")}
     return dict(mesh=mesh, cfg=cfg, carry=carry, data=data, step=train_step,
-                local_shapes=local, backend=dist.get_backend(),
-                world=dist.get_world_size(), rank=dist.get_rank())
+                shardings=shardings, local_shapes=local,
+                backend=dist.get_backend(), world=dist.get_world_size(),
+                rank=dist.get_rank())
+
+
+def _global_carry(s):
+    """The sharded setup's carry as the global tree it is a shard of: each
+    parameter and AdamW moment a DTensor of its placements over the mesh
+    (no communication), the step counts as they are (replicated)."""
+    from ray_tpu_torch.parallel.sharding import as_global, spec_of
+
+    with torch.device("meta"):
+        shapes = {n: tuple(p.shape)
+                  for n, p in gpt_mod.GPT(s["cfg"]).state_dict().items()}
+    mesh, pl = s["mesh"], s["shardings"]
+    return {key: {n: x if key == "step" else as_global(
+                      x, mesh, spec_of(mesh, pl[n], x.ndim), shape=shapes[n])
+                  for n, x in leaves.items()}
+            for key, leaves in s["carry"].items()}
+
+
+def _shard_checksums(tree):
+    """{leaf path: [[index, checksum], ...]} of the blocks this process
+    saves of `tree` (`array_checkpoint`'s rule)."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for path, leaf in array_checkpoint._leaves_with_paths(tree):
+        if isinstance(leaf, DTensor) or torch.distributed.get_rank() == 0:
+            own = array_checkpoint._own_shard(leaf,
+                                              torch.distributed.get_rank())
+            if own is not None:
+                out[path] = [[own[1], _checksum(own[0])]]
+    return out
 
 
 def _parallel_loop(config):
@@ -4585,8 +4660,11 @@ def _parallel_worker(config):
 def _parallel_pair_rank(config_json):
     """One rank of the two-rank gloo runs on the one card (phase 16 (b)):
     for each mesh of `config["axes"]`, `PARALLEL_PAIR_STEPS` eager sharded
-    steps (gloo collectives cannot be captured into a graph); the losses
-    and times to `out`."""
+    steps (gloo collectives cannot be captured into a graph); on the mesh
+    `config["ckpt_axes"]` the carry is then saved through
+    `save_to_checkpoint` (rank 0's directory the checkpoint, rank k's its
+    `_shards/rank_k`, as the train session persists them) and a 4th step
+    taken. The losses, times and the saved blocks' checksums to `out`."""
     config = json.loads(config_json)
     from ray_tpu_torch.parallel import ShardingStrategy
 
@@ -4620,6 +4698,8 @@ def _parallel_pair_rank(config_json):
                 bwd_launches=flash_attention_bwd.launches,
                 peak_gib=(torch.cuda.max_memory_allocated() / 2**30
                           if device == "cuda" else 0.0)))
+            if axes == config.get("ckpt_axes"):
+                rows[-1]["ckpt"] = _pair_checkpoint(s, carry, config)
             del s, carry
             gc.collect()
             if device == "cuda":
@@ -4630,23 +4710,92 @@ def _parallel_pair_rank(config_json):
         json.dump(rows, f)
 
 
-def _parallel_pair(axes, model, seed, batch, seq, device, timeout=600):
-    """Two processes on the one card, one gloo group, each of the meshes
-    `axes` in turn; per mesh, both ranks' rows."""
-    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
-    PARALLEL_DIR.mkdir()
-    out = str(PARALLEL_DIR / "pair")
-    procs = []
-    for rank in range(2):
-        config = dict(rank=rank, axes=list(axes), model=model, seed=seed,
-                      batch=batch, seq=seq, device=device, out=out,
-                      store=str(PARALLEL_DIR / "store"))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", "import sys, chip_smoke; "
-             "chip_smoke._parallel_pair_rank(sys.argv[1])",
-             json.dumps(config)], cwd=Path(__file__).resolve().parent,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+def _pair_checkpoint(s, carry, config):
+    """Saves the pair's carry (each rank its shards), then takes the 4th
+    step: the save's seconds, the bytes this rank wrote, its blocks'
+    checksums and the 4th step's loss."""
+    rank = config["rank"]
+    tree = _global_carry(dict(s, carry=carry))
+    if config["device"] == "cuda":
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
+    staged = array_checkpoint.save_to_checkpoint(tree,
+                                                 base_dir=str(PARALLEL_DIR))
+    dest = config["ckpt"] if rank == 0 else os.path.join(
+        config["ckpt"] + "_shards", f"rank_{rank}")
+    os.makedirs(os.path.dirname(dest), exist_ok=True)
+    shutil.move(staged.path, dest)
+    torch.distributed.barrier()
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in Path(dest).iterdir())
+    sums = _shard_checksums(tree)
+    split = sum(any(p.is_shard() for p in leaf.placements)
+                for leaf in _tensor_leaves(tree)
+                if hasattr(leaf, "placements"))
+    del tree
+    _, loss = s["step"](carry, s["data"])
+    return dict(save_s=save_s, bytes=nbytes, checksums=sums, split=split,
+                loss4=float(loss), dir=dest)
+
+
+def _parallel_restore(config_json):
+    """Phase 16 (b)'s restore: one process, a {"dp": 1} mesh on the card
+    (a gloo group of one), the `train` setup's carry as DTensors restored
+    from the pair's sharded checkpoint and copied into the live carry,
+    then one eager step. The restore's seconds, each saved block's
+    checksum over the restored values, and the step's loss to `out`."""
+    config = json.loads(config_json)
+    from ray_tpu_torch.parallel import ShardingStrategy
+
+    device = config["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{config['store']}", world_size=1,
+        rank=0)
+    try:
+        s = _sharded_setup(ShardingStrategy(), config["model"],
+                           config["seed"], config["batch"], config["seq"],
+                           device, capturable=False)
+        like = _global_carry(s)
+        t0 = time.perf_counter()
+        restored = array_checkpoint.restore_sharded(config["ckpt"], like)
+        with torch.no_grad():
+            for got, live in zip(_tensor_leaves(restored),
+                                 _tensor_leaves(s["carry"])):
+                live.copy_(got.to_local() if hasattr(got, "to_local")
+                           else got)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        full = dict(array_checkpoint._leaves_with_paths(restored))
+        sums = {path: [[idx, _checksum(
+                    full[path].to_local()[tuple(slice(a, b) for a, b in idx)]
+                    if hasattr(full[path], "to_local") else full[path])]
+                    for idx, _ in blocks]
+                for path, blocks in config["checksums"].items()}
+        del restored, full
+        flash_attention.launches = 0
+        flash_attention_bwd.launches = 0
+        _, loss = s["step"](s["carry"], s["data"])
+        row = dict(restore_s=restore_s, checksums=sums, loss=float(loss),
+                   mesh=s["mesh"].shape,
+                   fwd_launches=flash_attention.launches,
+                   bwd_launches=flash_attention_bwd.launches)
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(config["out"], "w") as f:
+        json.dump(row, f)
+
+
+def _run_ranks(target, configs, timeout):
+    """`chip_smoke.<target>(config)` in one process per config, all at
+    once; asserts that each exits 0 and none is left running."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         f"chip_smoke.{target}(sys.argv[1])", json.dumps(config)],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for config in configs]
     logs = []
     try:
         for p in procs:
@@ -4656,15 +4805,53 @@ def _parallel_pair(axes, model, seed, batch, seq, device, timeout=600):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    wall_s = time.perf_counter() - t0
     assert all(p.returncode == 0 for p in procs), "\n".join(
-        f"--- rank {r}:\n{log[-3000:]}" for r, log in enumerate(logs))
+        f"--- {target} {r}:\n{log[-3000:]}" for r, log in enumerate(logs))
+
+
+def _parallel_pair(axes, model, seed, batch, seq, device, timeout=600,
+                   ckpt_axes=None):
+    """Two processes on the one card, one gloo group, each of the meshes
+    `axes` in turn; per mesh, both ranks' rows. With `ckpt_axes`, the
+    run on that mesh saves a sharded checkpoint, which one more process
+    restores onto a {"dp": 1} mesh (its row: the second value)."""
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    PARALLEL_DIR.mkdir()
+    out = str(PARALLEL_DIR / "pair")
+    ckpt = str(PARALLEL_DIR / "ckpt")
+    common = dict(model=model, seed=seed, batch=batch, seq=seq,
+                  device=device)
+    t0 = time.perf_counter()
+    _run_ranks("_parallel_pair_rank", [
+        dict(common, rank=rank, axes=list(axes), out=out, ckpt=ckpt,
+             ckpt_axes=ckpt_axes, store=str(PARALLEL_DIR / "store"))
+        for rank in range(2)], timeout)
+    wall_s = time.perf_counter() - t0
     by_rank = []
     for rank in range(2):
         with open(f"{out}.{rank}.json") as f:
             by_rank.append(json.load(f))
+    runs = [list(rows) for rows in zip(*by_rank)]
+    restore = None
+    if ckpt_axes is not None:
+        saved = [r["ckpt"] for rows in runs for r in rows if "ckpt" in r]
+        with open(os.path.join(ckpt + "_shards", "rank_1",
+                               "asv_index.1.json")) as f:
+            rank1 = json.load(f)
+        checksums = {}
+        for c in saved:
+            for path, blocks in c["checksums"].items():
+                checksums.setdefault(path, []).extend(blocks)
+        _run_ranks("_parallel_restore", [dict(
+            common, ckpt=ckpt, checksums=checksums,
+            out=str(PARALLEL_DIR / "restore.json"),
+            store=str(PARALLEL_DIR / "store1"))], timeout)
+        with open(PARALLEL_DIR / "restore.json") as f:
+            restore = json.load(f)
+        restore.update(saved=saved, rank1_index=rank1,
+                       want_checksums=checksums)
     shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
-    return [list(rows) for rows in zip(*by_rank)], wall_s
+    return runs, wall_s, restore
 
 
 def phase_parallel(want_losses, ref_ms, model="gpt2_125m", batch=16,
@@ -4674,7 +4861,7 @@ def phase_parallel(want_losses, ref_ms, model="gpt2_125m", batch=16,
     card over gloo, at tp=2 and at fsdp=2. `want_losses` is the `train`
     phase's K=1 trajectory, `ref_ms` its graphed step ms at K=1 and K=4."""
     row = parallel_gang(want_losses, ref_ms, model, batch, seq, seed, device)
-    row["pairs"], row["pairs_wall_s"] = parallel_pairs(
+    row["pairs"], row["pairs_wall_s"], row["checkpoint"] = parallel_pairs(
         row["losses"], model, batch, seq, seed, device)
     return row
 
@@ -4777,8 +4964,9 @@ def parallel_pairs(losses, model="gpt2_125m", batch=16, seq=1024, seed=3,
     n_layer = getattr(gpt_mod.GPTConfig, model)().n_layer
     per = 1 if device == "cuda" else 0
     pairs = []
-    runs, wall_s = _parallel_pair(PARALLEL_PAIRS, model, seed, batch, seq,
-                                  device)
+    runs, wall_s, restore = _parallel_pair(
+        PARALLEL_PAIRS, model, seed, batch, seq, device,
+        ckpt_axes=PARALLEL_CKPT_AXES)
     for axes, rows in zip(PARALLEL_PAIRS, runs):
         got = rows[0]["losses"]
         err = max(abs(g - w) / abs(w) for g, w in zip(got, losses))
@@ -4809,7 +4997,282 @@ def parallel_pairs(losses, model="gpt2_125m", batch=16, seq=1024, seed=3,
                 n_layer * PARALLEL_PAIR_STEPS * BWD_KERNELS_PER_CALL * per
     print(f"parallel (b): both meshes in {wall_s:.1f} s (two processes' "
           f"start, gloo group, setup and steps)")
-    return pairs, wall_s
+    return pairs, wall_s, _check_restore(restore, n_layer, per, card)
+
+
+def _check_restore(restore, n_layer, per, card):
+    """Phase 16 (b)'s sharded checkpoint: every leaf sharded over fsdp has
+    a shard in rank 1's directory, each saved block's checksum over the
+    restored values equals the saver's, and the restored step's loss is
+    within PARALLEL_SPLIT_LOSS_RTOL of the pair's 4th step."""
+    saved = restore["saved"]
+    loss4 = saved[0]["loss4"]
+    assert [c["loss4"] for c in saved] == [loss4, loss4], saved
+    rank1 = [leaf for leaf in restore["rank1_index"]["leaves"]
+             if leaf["kind"] == "array"]
+    with_shards = [leaf["path"] for leaf in rank1 if leaf["shards"]]
+    # rank 1 writes its half of every leaf that fsdp splits (its `embed`
+    # axis: wte, wpe, the Dense weights and the embed-sized biases, in the
+    # parameters and both AdamW moments) and nothing replicated
+    assert len(with_shards) == saved[1]["split"] > 0, \
+        (len(with_shards), saved[1]["split"])
+    want, got = restore["want_checksums"], restore["checksums"]
+    exact = [g[1] == w[1] for path in want
+             for g, w in zip(got[path], want[path])]
+    assert exact and all(exact), f"{exact.count(False)} blocks differ"
+    err = abs(restore["loss"] - loss4) / abs(loss4)
+    assert err <= PARALLEL_SPLIT_LOSS_RTOL, (restore["loss"], loss4)
+    assert restore["mesh"] == {"dp": 1}, restore["mesh"]
+    assert restore["fwd_launches"] == n_layer * per
+    assert restore["bwd_launches"] == n_layer * BWD_KERNELS_PER_CALL * per
+    _assert_clean()
+    row = dict(axes=PARALLEL_CKPT_AXES,
+               save_s=[c["save_s"] for c in saved],
+               bytes=[c["bytes"] for c in saved],
+               restore_s=restore["restore_s"], blocks=len(exact),
+               rank1_leaves_with_shards=len(with_shards),
+               loss4=loss4, restored_loss=restore["loss"], rel_err=err,
+               fwd_launches=restore["fwd_launches"],
+               bwd_launches=restore["bwd_launches"])
+    print(f"parallel (b) checkpoint: the {PARALLEL_CKPT_AXES} pair's carry "
+          f"saved sharded in {[round(x, 2) for x in row['save_s']]} s by "
+          f"rank, {[b for b in row['bytes']]} bytes written by rank (rank "
+          f"1: {len(with_shards)} leaves with shards); restored onto "
+          f"{{'dp': 1}} in {row['restore_s']:.2f} s, all {len(exact)} saved "
+          f"blocks bit-identical; the next step's loss {restore['loss']:.5f}"
+          f" vs the pair's 4th {loss4:.5f} (rel {err:.1e}, tol "
+          f"{PARALLEL_SPLIT_LOSS_RTOL}) (card: {card})")
+    return row
+
+
+MODELS_STEPS = 3            # eager steps, then as many through the runner
+MODELS_LOSS_RTOL = 1e-3     # each graphed loss against eager's at its step
+MODELS_STATS_RTOL = 1e-3    # ResNet's running statistics, graphed vs eager
+
+
+def _images(batch, size, classes, seed, device):
+    """A fixed batch of NHWC images and labels from numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, size, size, 3), dtype=np.float32)
+    y = rng.integers(0, classes, batch)
+    return {"x": torch.from_numpy(x).to(device),
+            "y": torch.from_numpy(y).to(device)}
+
+
+def _mlm_batch(cfg, batch, seq, seed, device, prob=0.15):
+    """BERT's 80/10/10 corruption of random tokens, with numpy; segment A
+    then B."""
+    rng = np.random.default_rng(seed)
+    mask_id = cfg.vocab_size - 1
+    toks = rng.integers(0, mask_id, (batch, seq))
+    sel = rng.random(toks.shape) < prob
+    kind = rng.random(toks.shape)
+    rand = rng.integers(0, cfg.vocab_size, toks.shape)
+    corrupted = np.where(sel & (kind < 0.8), mask_id,
+                         np.where(sel & (kind >= 0.9), rand, toks))
+    types = (np.arange(seq) >= seq // 2).astype(np.int64)
+    return {"x": torch.from_numpy(corrupted).to(device),
+            "y": torch.from_numpy(np.where(sel, toks, -1)).to(device),
+            "t": torch.from_numpy(np.broadcast_to(types, toks.shape).copy()
+                                  ).to(device)}
+
+
+def _model_cells(device):
+    """(name, batch, unit, n_layer with flash attention (0: none), build):
+    `build(seed)` gives (model, its parameters and buffers, loss(batch),
+    batch)."""
+    from ray_tpu_torch.models import bert, moe_gpt, resnet, vit
+
+    def moe(seed):
+        cfg = moe_gpt.MoEGPTConfig(remat=False)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        net = moe_gpt.MoEGPT.from_params(
+            cfg, moe_gpt.init_params(cfg, gen, device, torch.float32),
+            attention_fn=partial(flash_attention, causal=True),
+            trainable=True)
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                    (8, 1025))
+        toks = torch.from_numpy(toks).to(device)
+
+        def loss(b):
+            hidden, wte, aux = net(b["x"], return_hidden=True)
+            return fused_cross_entropy(hidden, wte, b["y"]) + \
+                moe_gpt.total_aux_loss(aux)
+        return net, loss, {"x": toks[:, :-1], "y": toks[:, 1:]}
+
+    def bert_mlm(seed):
+        cfg = bert.BertConfig.bert_base(remat=False)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        net = bert.BertEncoder.from_params(
+            cfg, bert.init_params(cfg, gen, device, torch.float32),
+            attention_fn=partial(flash_attention, causal=False),
+            trainable=True)
+
+        def loss(b):
+            return bert.mlm_loss(net, b["x"], b["y"], b["t"])
+        return net, loss, _mlm_batch(cfg, 32, 512, seed, device)
+
+    def vit_b16(seed):
+        cfg = vit.ViTConfig.base_16(remat=False)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        net = vit.ViT.from_params(
+            cfg, vit.init_params(cfg, gen, device, torch.float32),
+            trainable=True)
+
+        def loss(b):
+            return F.cross_entropy(net(b["x"]), b["y"])
+        return net, loss, _images(64, 224, 1000, seed, device)
+
+    def resnet50(seed):
+        cfg = resnet.ResNetConfig.resnet50()
+        gen = torch.Generator(device=device).manual_seed(seed)
+        net = resnet.ResNet.from_params(
+            cfg, resnet.init_variables(cfg, gen, device, torch.float32),
+            trainable=True)
+
+        def loss(b):
+            return F.cross_entropy(net(b["x"], train=True), b["y"])
+        return net, loss, _images(64, 224, 1000, seed, device)
+
+    return [("moe_gpt", 8, "sequences of 1024", 12, moe),
+            ("bert", 32, "sequences of 512", 12, bert_mlm),
+            ("vit", 64, "images", 0, vit_b16),
+            ("resnet50", 64, "images", 0, resnet50)]
+
+
+def _model_run(build, seed, graphed, device):
+    """MODELS_STEPS AdamW steps of a fresh model (eager, or through
+    `TrainStepRunner` at K=1 with the launch counts at 0 just before the
+    steps): losses, each step's ms, the launches, peak memory, the
+    buffers after the steps and (graphed) the miss's seconds."""
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    net, loss_fn, batch = build(seed)
+    # capturable in both runs, so that the graph is held to the same
+    # arithmetic run eagerly (the eager optimizer's host-side bias
+    # corrections differ in the last bits, which ViT's loss, falling from
+    # 7.5 to 0.2 in three steps, magnifies past 1e-3)
+    opt = torch.optim.AdamW(net.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4,
+                            capturable=device == "cuda")
+    losses, ms = [], []
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    carry = _adamw_carry(net, opt)
+    if graphed:
+
+        def step(carry, b):
+            loss = loss_fn(b)
+            loss.backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            return carry, loss.detach()
+
+        runner = TrainStepRunner(step, device=device)
+        stats0 = runner.cache_stats()
+        for _ in range(MODELS_STEPS):
+            t0 = time.perf_counter()
+            carry, loss = runner.run(carry, batch)
+            losses.append(float(loss))  # a host read: the step's end
+            ms.append((time.perf_counter() - t0) * 1e3)
+        # this runner's share of the process's cache counters
+        stats = {k: n - stats0[k] for k, n in runner.cache_stats().items()}
+        global_cache().evict(runner._compiled)
+        del runner, carry
+    else:
+        for _ in range(MODELS_STEPS):
+            t0 = time.perf_counter()
+            loss = loss_fn(batch)
+            loss.backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            losses.append(float(loss.detach()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        stats = None
+    row = dict(losses=losses, step_ms=ms, fwd=flash_attention.launches,
+               bwd=flash_attention_bwd.launches, cache=stats,
+               peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if device == "cuda" else 0.0),
+               buffers={n: b.detach().clone()
+                        for n, b in net.named_buffers()})
+    del net, opt, loss_fn, batch
+    return row
+
+
+def phase_models(device="cuda", seed=5, cells=None):
+    """Phase 17 (module docstring): each model family at its published
+    widths, eager then graphed from the same weights and batch."""
+    card = card_line() if device == "cuda" else "cpu"
+    per = 1 if device == "cuda" else 0
+    rows = {}
+    for name, batch, unit, flash_layers, build in (cells or
+                                                   _model_cells(device)):
+        t0 = time.perf_counter()
+        eager = _model_run(build, seed, False, device)
+        graphed = _model_run(build, seed, True, device)
+        wall_s = time.perf_counter() - t0
+        le, lg = eager["losses"], graphed["losses"]
+        err = max(abs(g - e) / abs(e) for g, e in zip(lg, le))
+        assert all(np.isfinite(le + lg)), (name, le, lg)
+        assert le[-1] < le[0] and lg[-1] < lg[0], (name, le, lg)
+        assert err <= MODELS_LOSS_RTOL, (name, le, lg)
+        # one capture, then replays: the first step is the miss
+        assert graphed["cache"] == {"hits": MODELS_STEPS - 1, "misses": 1,
+                                    "retraces": 0}, graphed["cache"]
+        # the flash kernels on every layer of every step (a plain-attention
+        # fallback would launch none), the route bf16 takes on the card
+        for run in (eager, graphed):
+            assert run["fwd"] == flash_layers * MODELS_STEPS * per, \
+                (name, run["fwd"])
+            assert run["bwd"] == flash_layers * MODELS_STEPS * \
+                BWD_KERNELS_PER_CALL * per, (name, run["bwd"])
+        route = None
+        if flash_layers and device == "cuda":
+            route = kernel_routes(torch.bfloat16)
+            assert route == {"fwd": "sm90", "bwd": "sm90"}, route
+        stats_err = None
+        if eager["buffers"]:  # ResNet's running statistics
+            stats_err = max(_rel_err(graphed["buffers"][n], b)
+                            for n, b in eager["buffers"].items())
+            moved = [not torch.equal(b, torch.zeros_like(b) if
+                                     n.endswith(".mean") else
+                                     torch.ones_like(b))
+                     for n, b in eager["buffers"].items()]
+            assert all(moved), (name, moved.count(False))
+            assert stats_err <= MODELS_STATS_RTOL, (name, stats_err)
+        eager_ms = statistics.median(eager["step_ms"][1:])
+        graph_ms = statistics.median(graphed["step_ms"][1:])
+        row = dict(batch=batch, unit=unit, eager_losses=le,
+                   graphed_losses=lg, rel_err=err,
+                   eager_step_ms=eager_ms, graphed_step_ms=graph_ms,
+                   eager_ms_all=eager["step_ms"],
+                   graphed_ms_all=graphed["step_ms"],
+                   samples_per_s=batch / graph_ms * 1e3,
+                   miss_s=graphed["step_ms"][0] / 1e3,
+                   peak_gib=max(eager["peak_gib"], graphed["peak_gib"]),
+                   fwd_launches=graphed["fwd"], bwd_launches=graphed["bwd"],
+                   eager_fwd_launches=eager["fwd"],
+                   eager_bwd_launches=eager["bwd"],
+                   route=route and route["fwd"], stats_rel_err=stats_err,
+                   wall_s=wall_s)
+        rows[name] = row
+        print(f"models {name}: B={batch} {unit}; losses eager "
+              f"{[round(x, 4) for x in le]} graphed "
+              f"{[round(x, 4) for x in lg]} (worst rel {err:.1e}, tol "
+              f"{MODELS_LOSS_RTOL}); step ms eager {eager_ms:.2f} graphed "
+              f"{graph_ms:.2f} = {row['samples_per_s']:.1f} samples/s; miss "
+              f"(eager step + capture) {row['miss_s']:.2f} s; peak "
+              f"{row['peak_gib']:.2f} GiB; flash launches over "
+              f"{MODELS_STEPS} steps fwd {graphed['fwd']} bwd "
+              f"{graphed['bwd']} (route {row['route']})"
+              + ("" if stats_err is None else
+                 f"; running statistics graphed vs eager rel "
+                 f"{stats_err:.1e} (tol {MODELS_STATS_RTOL})")
+              + f"; {wall_s:.1f} s (card: {card})")
+    return rows
 
 
 def _numbers(row):
@@ -4838,7 +5301,7 @@ BWD_DESIGN = (
 
 def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
                  spec, runtime, serve_row, train_dist, train_data, dag,
-                 cluster, operator, parallel, ptxas):
+                 cluster, operator, parallel, models, ptxas):
     """The `kernels` entries: every ported kernel with its numbers. The
     forward at the serving path's largest prefill shape (with the GPT-2
     run's launches per prefill bucket at that bucket's time), the
@@ -4854,8 +5317,11 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
     `dag_actor`: the actor graph's GPU actor's; `cluster`: the GPU step's
     worker on the autoscaled node; `operator`: the GPU replica that
     `serve-deploy` started; `parallel`: the sharded step's GPU worker
-    (rank 0 of the NCCL mesh), and `parallel_pairs` each two-rank gloo
-    run's ranks on the one card)."""
+    (rank 0 of the NCCL mesh), `parallel_pairs` each two-rank gloo
+    run's ranks on the one card, `parallel_restore` the step after the
+    sharded checkpoint's restore; `models` the graphed runs of the model
+    families that attend with the kernels, MoE-GPT and BERT, whose shapes
+    are also `training_paths`)."""
     def at(table, shape):
         return next(r for r in table if r["shape"] == shape)
 
@@ -4863,12 +5329,21 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
 
     def per_path(table, key):
         # each training path's launches with the times at its shape
-        return {name: dict(at=shape, launches=path[key],
-                           **_numbers(at(table, shape)))
-                for name, shape, path in (
-                    ("train", TRAIN_SHAPE, train),
-                    ("train_llama", TRAIN_LLAMA_SHAPE, train_llama),
-                    ("train_long", TRAIN_LONG_SHAPE, train_long))}
+        paths = {name: dict(at=shape, launches=path[key],
+                            **_numbers(at(table, shape)))
+                 for name, shape, path in (
+                     ("train", TRAIN_SHAPE, train),
+                     ("train_llama", TRAIN_LLAMA_SHAPE, train_llama),
+                     ("train_long", TRAIN_LONG_SHAPE, train_long))}
+        for name, shape in (("moe_gpt", MOE_SHAPE), ("bert", BERT_SHAPE)):
+            paths[f"models_{name}"] = dict(
+                at=shape, launches=models[name][key],
+                **_numbers(at(table, shape)))
+        return paths
+
+    def model_launches(key):
+        return {f"launches_models_{name}": row[key]
+                for name, row in models.items() if row[key]}
 
     def graphed_launches(key):
         # the TrainStepRunner runs' launches (replays credited with their
@@ -4909,6 +5384,8 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_parallel": parallel["fwd_launches"],
         "launches_parallel_pairs": {
             str(p["axes"]): p["fwd_launches"] for p in parallel["pairs"]},
+        "launches_parallel_restore": parallel["checkpoint"]["fwd_launches"],
+        **model_launches("fwd_launches"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **_numbers(main_row),
         "at": MAIN_SHAPE,
@@ -4936,6 +5413,8 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_parallel": parallel["bwd_launches"],
         "launches_parallel_pairs": {
             str(p["axes"]): p["bwd_launches"] for p in parallel["pairs"]},
+        "launches_parallel_restore": parallel["checkpoint"]["bwd_launches"],
+        **model_launches("bwd_launches"),
         "kernels_per_call": BWD_KERNELS_PER_CALL,
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in bwd_rows),
@@ -5015,18 +5494,21 @@ def main() -> int:
     # parallel/: the `train` cell through a sharded step on a mesh, in a
     # TorchTrainer gang (NCCL), then two ranks on the card over gloo
     parallel = phase_parallel(k1["losses"], (k1["step_ms"], k4["step_ms"]))
+    # the other model families at their published widths, eager and graphed
+    models = phase_models()
 
     kernels = kernels_line(rows, bwd_rows, train, train_llama, train_long,
                            gpt, llama, spec, runtime, serve_row, train_dist,
                            train_data, dag, cluster, operator, parallel,
-                           ptxas)
+                           models, ptxas)
     print(json.dumps({"build_s": build_s, "train": train,
                       "train_llama": train_llama, "train_long": train_long,
                       "engines": [gpt, llama], "engine_spec": spec,
                       "runtime": runtime, "serve": serve_row,
                       "train_dist": train_dist, "train_data": train_data,
                       "dag": dag, "soak": soak, "cluster": cluster,
-                      "operator": operator, "parallel": parallel}))
+                      "operator": operator, "parallel": parallel,
+                      "models": models}))
     print(json.dumps({"kernels": kernels}))
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
           f"{build_s:.1f} s of it")

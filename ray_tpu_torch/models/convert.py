@@ -12,7 +12,12 @@ Mapping, by the Flax names:
   `(n_head+n_kv_head)*hd`) and `mlp_gate_up` in halves;
 - Dense biases, `wte` (the tied head: one tensor) and `wpe` keep their
   shapes;
-- LayerNorm/RMSNorm `scale` (and `bias`) keep their names.
+- LayerNorm/RMSNorm `scale` (and `bias`) keep their names;
+- a conv kernel [kh, kw, in, out] (HWIO) becomes torch's [out, in, kh,
+  kw] (OIHW): ViT's patchify, ResNet's convolutions;
+- MoE-GPT's router and experts keep their JAX layouts; BERT's `wtt` and
+  ViT's `cls` and `pos_embed` keep their shapes; ResNet's `batch_stats`
+  (`mean`, `var`) become the model's f32 buffers of those names.
 
 Projections and embeddings are stored in `dtype` (default `cfg.dtype`):
 Flax casts each to `cfg.dtype` at use, so a forward sees the same
@@ -20,7 +25,7 @@ values. Norm parameters, which Flax reads in f32, stay in
 `cfg.param_dtype`.
 
 Given a mesh and the parameters' placements (`parallel.sharding.
-param_shardings`), the GPT parameters come back as DTensors on the mesh,
+param_shardings`), the GPT, MoE-GPT and BERT parameters come back as DTensors on the mesh,
 each rank holding its shards: the sharded model's parameters. Their
 layout is the JAX one (the fused qkv's rows are not permuted), so a
 gathered DTensor is the Flax array (transposed for a Dense kernel).
@@ -63,10 +68,8 @@ def gpt_params_from_jax(tree, cfg, device=None,
     `mesh` and `shardings`, DTensors on the mesh's device (module
     docstring)."""
     if mesh is not None:
-        from ray_tpu_torch.parallel.sharding import shard_params
-
-        return shard_params(gpt_params_from_jax(tree, cfg, "cpu", dtype),
-                            mesh, shardings)
+        return _sharded(gpt_params_from_jax, tree, cfg, dtype, mesh,
+                        shardings)
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     p = unboxed_params(tree)
@@ -101,4 +104,124 @@ def llama_params_from_jax(tree, cfg, device=None,
                   cfg.param_dtype, bias=False)
     _norm(out, "final_norm", p["final_norm"], device, cfg.param_dtype,
           bias=False)
+    return out
+
+
+def _sharded(fn, tree, cfg, dtype, mesh, shardings):
+    """`fn`'s params as DTensors on `mesh` (`gpt_params_from_jax`)."""
+    from ray_tpu_torch.parallel.sharding import shard_params
+
+    return shard_params(fn(tree, cfg, "cpu", dtype), mesh, shardings)
+
+
+def moe_gpt_params_from_jax(tree, cfg, device=None,
+                            dtype: Optional[torch.dtype] = None, *,
+                            mesh=None, shardings=None
+                            ) -> Dict[str, torch.Tensor]:
+    """Port params (the `MoEGPT.from_params` dict) from a Flax MoEGPT
+    tree: the attention half as GPT's, the expert layer in its JAX layout
+    (the router in `cfg.param_dtype`); DTensors with `mesh`."""
+    if mesh is not None:
+        return _sharded(moe_gpt_params_from_jax, tree, cfg, dtype, mesh,
+                        shardings)
+    device = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    p = unboxed_params(tree)
+    out = {"wte": _tensor(p["wte"], device, dtype),
+           "wpe": _tensor(p["wpe"], device, dtype)}
+    for i in range(cfg.n_layer):
+        lp = p[f"h{i}"]
+        for name in ("attn_qkv", "attn_out"):
+            _dense(out, f"h{i}.{name}", lp[name], device, dtype)
+        for name in ("ln_1", "ln_2"):
+            _norm(out, f"h{i}.{name}", lp[name], device, cfg.param_dtype)
+        moe = lp["moe"]
+        out[f"h{i}.moe.router"] = _tensor(moe["router"], device,
+                                          cfg.param_dtype)
+        for name in ("experts_up", "experts_down"):
+            out[f"h{i}.moe.{name}"] = _tensor(moe[name], device, dtype)
+    _norm(out, "ln_f", p["ln_f"], device, cfg.param_dtype)
+    return out
+
+
+def bert_params_from_jax(tree, cfg, device=None,
+                         dtype: Optional[torch.dtype] = None, *, mesh=None,
+                         shardings=None) -> Dict[str, torch.Tensor]:
+    """Port params (the `BertEncoder.from_params` dict) from a Flax
+    BertEncoder tree; DTensors with `mesh`."""
+    if mesh is not None:
+        return _sharded(bert_params_from_jax, tree, cfg, dtype, mesh,
+                        shardings)
+    out = gpt_params_from_jax(tree, cfg._gpt_view(), device, dtype)
+    out["wtt"] = _tensor(unboxed_params(tree)["wtt"], resolve_device(device),
+                         dtype or cfg.dtype)
+    return out
+
+
+def _conv_kernel(k):
+    """A Flax conv kernel [kh, kw, in, out] as torch's [out, in, kh, kw]."""
+    return np.asarray(k).transpose(3, 2, 0, 1)
+
+
+def vit_params_from_jax(tree, cfg, device=None,
+                        dtype: Optional[torch.dtype] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Port params (the `ViT.from_params` dict) from a Flax ViT tree."""
+    device = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    p = unboxed_params(tree)
+    out = {"patchify.weight": _tensor(_conv_kernel(p["patchify"]["kernel"]),
+                                      device, dtype),
+           "patchify.bias": _tensor(p["patchify"]["bias"], device, dtype),
+           "cls": _tensor(p["cls"], device, dtype),
+           "pos_embed": _tensor(p["pos_embed"], device, dtype)}
+    for i in range(cfg.n_layer):
+        lp = p[f"encoder{i}"]
+        for name in ("attn_qkv", "attn_out", "mlp_up", "mlp_down"):
+            _dense(out, f"encoder{i}.{name}", lp[name], device, dtype)
+        for name in ("ln_1", "ln_2"):
+            _norm(out, f"encoder{i}.{name}", lp[name], device,
+                  cfg.param_dtype)
+    _norm(out, "ln_f", p["ln_f"], device, cfg.param_dtype)
+    _dense(out, "head", p["head"], device, dtype)
+    return out
+
+
+def resnet_variables_from_jax(variables, cfg, device=None,
+                              dtype: Optional[torch.dtype] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """Port variables (the `ResNet.from_params` dict) from Flax ResNet
+    variables {"params": ..., "batch_stats": ...}: conv kernels HWIO ->
+    OIHW and the head in `dtype`, BatchNorm scale/bias in
+    `cfg.param_dtype`, the running `mean`/`var` in f32. Without
+    "batch_stats" (a gradient tree, say) only the parameters."""
+    device = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    params = unboxed_params(variables)
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix):
+        for name in sorted(node):
+            leaf, path = node[name], f"{prefix}{name}"
+            if isinstance(leaf, dict):
+                walk(leaf, path + ".")
+            elif name == "kernel" and prefix == "head.":
+                out["head.weight"] = _tensor(np.asarray(leaf).T, device,
+                                             dtype)
+            elif name == "kernel":
+                out[f"{prefix}weight"] = _tensor(_conv_kernel(leaf), device,
+                                                 dtype)
+            elif prefix == "head.":
+                out[path] = _tensor(leaf, device, dtype)
+            else:  # BatchNorm scale and bias
+                out[path] = _tensor(leaf, device, cfg.param_dtype)
+
+    walk(params, "")
+    for mod, stats in sorted(variables.get("batch_stats", {}).items()):
+        for blk, leaves in ([(mod, stats)] if "mean" in stats
+                            else [(f"{mod}.{k}", v)
+                                  for k, v in sorted(stats.items())]):
+            for name in ("mean", "var"):
+                out[f"{blk}.{name}"] = _tensor(leaves[name], device,
+                                               torch.float32)
     return out

@@ -184,14 +184,18 @@ class Block(nn.Module):
             h = dropout(h, self.config.dropout, keep)
         return x + h
 
+    def attend(self):
+        """The block's attention: its `attention_fn`, else dense causal
+        attention (the encoder passes a non-causal one)."""
+        return self.attention_fn or partial(full_attention, causal=True)
+
     def forward(self, x, kv_sink: Optional[list] = None, keep=None):
         b, t = x.shape[0], x.shape[1]
         q, k, v = self.project_qkv(x)
         # decode-cache tap (serve.llm prefill), the Flax `sow`
         if kv_sink is not None:
             kv_sink.append((k, v))
-        attend = self.attention_fn or partial(full_attention, causal=True)
-        att = attend(q, k, v).reshape(b, t, self.config.d_model)
+        att = self.attend()(q, k, v).reshape(b, t, self.config.d_model)
         return self.residual_mlp(x, att, keep)
 
 
@@ -207,10 +211,18 @@ def _from_params(cls, config, params: Dict[str, torch.Tensor],
     DTensors (`parallel.sharding.shard_params`) give a model of this
     rank's shards: each parameter is the DTensor's local tensor, which
     only `sharded_loss` knows how to run."""
-    from torch.distributed.tensor import DTensor
-
     with torch.device("meta"):
         net = cls(config, attention_fn)
+    return load_params(net, params, trainable)
+
+
+def load_params(net: nn.Module, params: Dict[str, torch.Tensor],
+                trainable: bool = False):
+    """`net` (built on the meta device) over `params`, as `_from_params`
+    describes: the model's state (parameters and buffers) shares their
+    storage; DTensors give this rank's shards."""
+    from torch.distributed.tensor import DTensor
+
     if any(isinstance(p, DTensor) for p in params.values()):
         want = set(net.state_dict())
         if set(params) != want:
@@ -433,14 +445,14 @@ class _Spmd:
             torch.arange(width, device=mesh.device_type)
             + j * cfg.d_model + self.tp_rank * width for j in range(3)])
 
-    def param(self, name, p, dtype, keep_tp=True):
+    def param(self, name, p, dtype, keep=("tp",)):
         """`p` (this rank's shard) in `dtype`, gathered over every mesh axis
-        that splits it but `tp` (kept when `keep_tp`): innermost first."""
+        that splits it but those of `keep`: innermost first."""
         p = p.to(dtype)
         pl = self.shardings[name]
         for i in reversed(range(len(pl))):
             axis = self.mesh.axis_names[i]
-            if pl[i].is_shard() and not (keep_tp and axis == "tp"):
+            if pl[i].is_shard() and axis not in keep:
                 p = collectives.allgather(p, axis, gather_dim=pl[i].dim,
                                           mesh=self.mesh)
         return p
@@ -478,19 +490,24 @@ class _Spmd:
         return ulysses_local(q, k, v, mesh=self.mesh, attention_fn=fn)
 
 
-def _sharded_block(blk: Block, spmd: _Spmd, prefix: str, x):
-    cfg, dt = blk.config, blk.config.dtype
+def _block_param(blk, spmd: _Spmd, prefix: str, name: str, keep=("tp",)):
+    """The block's parameter `name` as `spmd.param` gathers it."""
+    mod, _, leaf = name.rpartition(".")
+    return spmd.param(prefix + name, getattr(blk.get_submodule(mod), leaf),
+                      blk.config.dtype, keep)
+
+
+def _sharded_attention(blk, spmd: _Spmd, prefix: str, x):
+    """x + the attention sub-block of `blk` (a `Block`, or any block with
+    its ln_1, attn_qkv, attn_out and `attend`) on this rank's heads."""
+    cfg = blk.config
     b, t = x.shape[0], x.shape[1]
     hd = cfg.d_model // cfg.n_head
-
-    def param(name, keep_tp=True):
-        mod, _, leaf = name.rpartition(".")
-        return spmd.param(prefix + name,
-                          getattr(blk.get_submodule(mod), leaf), dt, keep_tp)
+    param = partial(_block_param, blk, spmd, prefix)
 
     # the fused qkv, gathered whole and sliced to this rank's heads: an even
     # split of its 3d rows would not give a rank whole heads of q, k and v
-    w, bias = (param(f"attn_qkv.{n}", keep_tp=False)
+    w, bias = (param(f"attn_qkv.{n}", keep=())
                for n in ("weight", "bias"))
     if spmd.qkv_rows is not None:
         w = w.index_select(0, spmd.qkv_rows)
@@ -499,16 +516,37 @@ def _sharded_block(blk: Block, spmd: _Spmd, prefix: str, x):
     q, k, v = (spmd.constrain(y.reshape(b, t, spmd.heads, hd),
                               ("batch", "seq", "heads", None))
                for y in qkv.split(spmd.heads * hd, dim=-1))
-    attend = blk.attention_fn or partial(full_attention, causal=True)
-    att = spmd.attend(attend, q, k, v).reshape(b, t, spmd.heads * hd)
-    x = x + spmd.row_linear(att, param("attn_out.weight"),
-                            param("attn_out.bias"))
+    # the block's own mask: causal in the decoders, not in the encoder
+    att = spmd.attend(blk.attend(), q, k, v).reshape(b, t, spmd.heads * hd)
+    return x + spmd.row_linear(att, param("attn_out.weight"),
+                               param("attn_out.bias"))
+
+
+def _sharded_block(blk: Block, spmd: _Spmd, prefix: str, x):
+    param = partial(_block_param, blk, spmd, prefix)
+    x = _sharded_attention(blk, spmd, prefix, x)
     h = spmd.tp_input(blk.ln_2(x))
     h = F.gelu(F.linear(h, param("mlp_up.weight"), param("mlp_up.bias")),
                approximate="tanh")
     x = x + spmd.row_linear(h, param("mlp_down.weight"),
                             param("mlp_down.bias"))
     return spmd.constrain(x, ("batch", "seq", "embed"))
+
+
+def sharded_embed(model, spmd: _Spmd, tokens):
+    """The token and position embeddings of this rank's token block, and
+    this rank's wte (rows over tp)."""
+    cfg = model.config
+    t = tokens.shape[1]
+    # the tied head takes wte as it is stored (the fused CE casts it), so
+    # that its gradient is summed with the embedding's in the master dtype
+    # as on one device
+    wte = spmd.param("wte", model.wte, model.wte.dtype)
+    wpe = spmd.param("wpe", model.wpe, cfg.dtype)
+    # the sequence block's positions are its global ones
+    off = spmd.sp_rank * t
+    x = spmd.embed(wte.to(cfg.dtype), tokens) + wpe[None, off:off + t]
+    return x, wte
 
 
 def sharded_hidden(model: GPT, tokens, mesh, shardings):
@@ -520,15 +558,7 @@ def sharded_hidden(model: GPT, tokens, mesh, shardings):
     if cfg.dropout > 0 and model.training:
         raise NotImplementedError("GPT: the sharded forward has no dropout")
     spmd = _Spmd(mesh, shardings, cfg)
-    t = tokens.shape[1]
-    # the tied head takes wte as it is stored (the fused CE casts it), so
-    # that its gradient is summed with the embedding's in the master dtype
-    # as on one device
-    wte = spmd.param("wte", model.wte, model.wte.dtype)
-    wpe = spmd.param("wpe", model.wpe, cfg.dtype)
-    # the sequence block's positions are its global ones
-    off = spmd.sp_rank * t
-    x = spmd.embed(wte.to(cfg.dtype), tokens) + wpe[None, off:off + t]
+    x, wte = sharded_embed(model, spmd, tokens)
     x = spmd.constrain(x, ("batch", "seq", "embed"))
     remat = cfg.remat and torch.is_grad_enabled()
     for i, blk in enumerate(model.blocks()):
@@ -545,9 +575,17 @@ def sharded_loss(model: GPT, tokens, targets, mesh, shardings,
     parallel over tp. `tokens`/`targets` are this rank's blocks;
     `shardings` the parameters' placements (`param_shardings`). After
     `backward`, `reduce_gradients` completes the gradients."""
+    hidden, wte, spmd = sharded_hidden(model, tokens, mesh, shardings)
+    return sharded_head_loss(hidden, wte, targets, spmd, ignore_index)
+
+
+def sharded_head_loss(hidden, wte, targets, spmd: _Spmd,
+                      ignore_index: int = -1):
+    """The fused LM-head loss on this rank's block, vocab-parallel over tp,
+    counted over the data axes (`sharded_loss`)."""
     from ray_tpu_torch.ops.fused_ce import fused_cross_entropy
 
-    hidden, wte, spmd = sharded_hidden(model, tokens, mesh, shardings)
+    mesh = spmd.mesh
     return fused_cross_entropy(
         spmd.tp_input(hidden), wte, targets, ignore_index,
         vocab_group=mesh.group("tp"),

@@ -19,17 +19,24 @@ written by either package restores bit-identically in the other:
     subtree.
 
 Save records the process as ``torch.distributed``'s rank of its world
-(0 of 1 when no process group is initialised). A data-parallel carry is
-replicated, so process 0 writes every tensor leaf whole (one shard) and
-every other process writes the leaf's record with no shards: the JAX
-package's ``replica_id == 0`` rule. Host values are saved by process 0
-only. `is_usable` then sees one index per process, as it does for the
-JAX package's multi-process checkpoints. Leaves sharded across ranks
-(DTensor) come with the port's device mesh (ROADMAP S5). Restore reads every index
+(0 of 1 when no process group is initialised). A plain tensor leaf is a
+replicated value (a data-parallel carry), so process 0 writes it whole
+(one shard) and every other process writes the leaf's record with no
+shards. A DTensor leaf is sharded over the port's device mesh: each
+process writes its local shard with its global index, the offsets by
+DTensor's own split rule (uneven splits included), and only if its
+coordinate is 0 on every mesh dimension where the leaf is `Replicate`,
+so that each distinct block is written once: the JAX package's
+``replica_id == 0`` rule. Host values are saved by process 0 only.
+`is_usable` then sees one index per process, as it does for the JAX
+package's multi-process checkpoints. Restore reads every index
 (the rank-0 directory and ``<dir>_shards/rank_*``) and assembles each
 leaf from whatever shard grid was saved, in numpy, so it also reads the
 multi-rank checkpoints the JAX package writes. It returns NEW tensors on
-the device of each ``like`` leaf. To resume a runner whose step is a
+the device of each ``like`` leaf; for a DTensor ``like`` leaf, a DTensor
+with its placements whose local shard is this rank's block of the saved
+value, read from whatever grid was saved (no collective: each rank
+reads the files). To resume a runner whose step is a
 captured CUDA graph, ``copy_`` them into the live carry (as
 ``load_state_dict`` does): the graph holds the carry's addresses, and a
 carry in other storages would not be accepted by the next replay.
@@ -164,13 +171,50 @@ def _process() -> Tuple[int, int]:
     return 0, 1
 
 
+def _local_block(leaf):
+    """A DTensor leaf's (local shard, its [start, stop) per dimension) on
+    this rank."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(
+        leaf.shape, leaf.device_mesh, leaf.placements)
+    return leaf.to_local(), [(int(o), int(o) + int(n))
+                             for o, n in zip(offset, shape)]
+
+
+def _own_shard(leaf, proc: int):
+    """(data, index) of the block of tensor `leaf` that this process
+    writes, or None: a plain tensor's whole value on process 0; a
+    DTensor's local shard where this rank's mesh coordinate is 0 on every
+    `Replicate` dimension (and the shard is not empty)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(leaf, DTensor):
+        return (leaf, _norm_index((), leaf.shape)) if proc == 0 else None
+    coord = leaf.device_mesh.get_coordinate()
+    if coord is None:
+        return None
+    for c, p in zip(coord, leaf.placements):
+        if p.is_partial():
+            raise ValueError("array checkpoint: a Partial DTensor has no "
+                             "value to save; reduce it first")
+        if p.is_replicate() and c != 0:
+            return None
+    data, index = _local_block(leaf)
+    if any(stop <= start for start, stop in index):
+        return None
+    return data, index
+
+
 def save_sharded(dir_path: str, tree: Any) -> None:
     """Write THIS process's contribution of `tree` into `dir_path`.
 
-    Every process of the group calls this with the same (replicated)
-    tree. Process 0 writes every tensor leaf whole and the host values;
-    the others write their index with empty shard lists. A caller with
-    no process group saves everything as process 0 of 1."""
+    Every process of the group calls this with the same tree structure.
+    Process 0 writes every plain tensor leaf whole and the host values;
+    each process writes its own blocks of the DTensor leaves (module
+    docstring). A caller with no process group saves everything as
+    process 0 of 1."""
     import torch
 
     from ray_tpu_torch.parallel.compile_cache import _flatten
@@ -190,17 +234,15 @@ def save_sharded(dir_path: str, tree: Any) -> None:
         if isinstance(leaf, torch.Tensor):
             shape = list(leaf.shape)
             shards_meta: List[dict] = []
-            if proc == 0:
-                # the replicated leaf's one copy; the other processes
-                # contribute an empty shard list for it
+            own = _own_shard(leaf, proc)
+            if own is not None:
                 key = f"l{pos}s0"
                 # as the JAX package writes it: a 0-d leaf's shard is [1]
-                data = np.ascontiguousarray(_to_numpy(leaf))
+                data = np.ascontiguousarray(_to_numpy(own[0]))
                 # flatten before the uint8 view: a 0-d array cannot change
                 # itemsize in place, and the shard record keeps the shape
                 blobs[key] = data.reshape(-1).view(np.uint8)
-                shards_meta.append({"key": key,
-                                    "index": _norm_index((), shape),
+                shards_meta.append({"key": key, "index": own[1],
                                     "shape": list(data.shape)})
             index["leaves"].append({
                 "pos": pos,
@@ -361,11 +403,14 @@ def restore_sharded(source: Any, like: Any) -> Any:
     is the rank-0 directory (sibling ``_shards/rank_*`` directories are
     found). `like` has the SAME structure; each tensor leaf gives the
     shape, dtype and device of the restored tensor (a new tensor, bit
-    identical to what was saved). A `like` leaf that is no tensor gets
+    identical to what was saved); a DTensor leaf gives its mesh and
+    placements too, and this rank reads only its block. A `like` leaf
+    that is no tensor gets
     the saved host value, or for a saved array a numpy array (bfloat16
     as its int16 bits). Copy the result into a graphed runner's live
     carry with ``copy_`` (see the module docstring)."""
     import torch
+    from torch.distributed.tensor import DTensor
 
     from ray_tpu_torch.parallel.compile_cache import _flatten, _unflatten
 
@@ -404,6 +449,15 @@ def restore_sharded(source: Any, like: Any) -> Any:
                     f"dtype mismatch for {keystr}: saved {meta['dtype']}, "
                     f"`like` has {tgt_dtype} — restore is bit-exact, "
                     f"cast after restoring if intended")
+            if isinstance(leaf, DTensor):
+                _, index = _local_block(leaf)
+                block = _assemble(src, pos, tuple(slice(a, b)
+                                                  for a, b in index))
+                out_leaves.append(DTensor.from_local(
+                    _to_torch(block, meta["dtype"], leaf.device),
+                    leaf.device_mesh, leaf.placements, run_check=False,
+                    shape=leaf.shape, stride=leaf.stride()))
+                continue
             block = _assemble(src, pos, (slice(None),) * len(shape))
             out_leaves.append(
                 _to_torch(block, meta["dtype"], leaf.device)

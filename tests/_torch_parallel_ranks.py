@@ -447,11 +447,197 @@ def sc_gpt8(inputs):
     return gpt_sharded_step(inputs["gpt_tree"], 8)
 
 
+# -- the other model families' sharded steps (test_torch_models_zoo_sharded)
+
+
+def bert_tokens():
+    """`test_bert_shards_like_the_decoders`' tokens."""
+    return np.random.default_rng(2).integers(0, 512, (4, 16)).astype(
+        np.int32)
+
+
+def bert_mlm_targets():
+    rng = np.random.default_rng(3)
+    tokens = bert_tokens()
+    return np.where(rng.random(tokens.shape) < 0.3, tokens, -1).astype(
+        np.int32)
+
+
+def sc_bert_sharded(inputs):
+    """The tiny BERT (f32 and bf16) at dp=2 tp=2: the gathered hidden
+    states of the sharded encoder, the unsharded port's, and the sharded
+    MLM loss (summed over the data ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import bert, convert
+    from ray_tpu_torch.parallel import (ShardingStrategy, logical_axis_rules,
+                                        shard_batch)
+    from ray_tpu_torch.parallel.sharding import param_shardings
+
+    strategy = ShardingStrategy(dp=2, tp=2)
+    mesh = strategy.build_mesh(device="cpu")
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg = bert.BertConfig.tiny(dtype=dtype, remat=False)
+        shardings = param_shardings(mesh, bert.param_logical_axes(cfg),
+                                    logical_axis_rules(strategy))
+        tree = inputs["bert_tree"]
+        placed = convert.bert_params_from_jax(tree, cfg, mesh=mesh,
+                                              shardings=shardings)
+        model = bert.BertEncoder.from_params(cfg, placed)
+        plain = bert.BertEncoder.from_params(
+            cfg, convert.bert_params_from_jax(tree, cfg, device="cpu"))
+        batch = shard_batch({"x": bert_tokens(), "y": bert_mlm_targets()},
+                            mesh, strategy)
+        with torch.no_grad():
+            hidden, _, spmd = bert.sharded_hidden(
+                model, batch["x"].to_local().long(), mesh, shardings)
+            loss = bert.sharded_mlm_loss(
+                model, batch["x"].to_local().long(),
+                batch["y"].to_local().long(), mesh, shardings)
+            ref, _ = plain(torch.from_numpy(bert_tokens()).long())
+        hidden = hidden.float().contiguous()
+        parts = [torch.empty_like(hidden)
+                 for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, hidden)
+        # ranks are (dp, tp) row-major: the dp blocks are ranks 0 and 2
+        out[name] = {"hidden": torch.cat([parts[0], parts[2]]).numpy(),
+                     "plain": ref.float().numpy(),
+                     "loss": float(_all_sum(loss.float()) / 2),
+                     "local_wte": tuple(model.wte.shape),
+                     "heads": spmd.heads}
+    return out
+
+
+MOE_LR = 1e-3
+
+
+def sc_moe_gpt_sharded(inputs):
+    """The tiny MoE-GPT's two AdamW steps at dp=2 x ep=2 (the expert
+    leaves split over ep), global routing: the global losses."""
+    import torch
+
+    from ray_tpu_torch.models import convert, gpt, moe_gpt
+    from ray_tpu_torch.parallel import (ShardingStrategy, logical_axis_rules,
+                                        shard_batch)
+    from ray_tpu_torch.parallel.sharding import param_shardings
+
+    strategy = ShardingStrategy(dp=2, ep=2)
+    mesh = strategy.build_mesh(device="cpu")
+    cfg = moe_gpt.MoEGPTConfig.tiny(dtype=torch.float32, remat=False)
+    shardings = param_shardings(mesh, moe_gpt.param_logical_axes(cfg),
+                                logical_axis_rules(strategy))
+    placed = convert.moe_gpt_params_from_jax(
+        inputs["moe_tree"], cfg, dtype=torch.float32, mesh=mesh,
+        shardings=shardings)
+    model = moe_gpt.MoEGPT.from_params(cfg, placed, trainable=True)
+    params = dict(model.named_parameters())
+    opt = torch.optim.AdamW(params.values(), lr=MOE_LR, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+    toks = inputs["moe_tokens"]
+    batch = shard_batch({"x": toks[:, :-1], "y": toks[:, 1:]}, mesh,
+                        strategy)
+    x, y = (batch[k].to_local().long() for k in ("x", "y"))
+    losses = []
+    for _ in range(2):
+        loss = moe_gpt.sharded_loss(model, x, y, mesh, shardings)
+        loss.backward()
+        gpt.reduce_gradients(params, mesh, shardings)
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(gpt.global_loss(loss, mesh)))
+    return {"losses": losses, "mesh": mesh.shape,
+            "local_experts": tuple(params["h0.moe.experts_up"].shape),
+            "placements": repr(shardings["h0.moe.experts_up"])}
+
+
+# -- sharded array checkpoints (test_torch_sharded_checkpoint) -------------
+
+
+def ckpt_state():
+    """`test_cross_topology_restore`'s state, as global numpy values."""
+    return {"w": np.arange(32, dtype=np.float32).reshape(8, 4),
+            "b": np.full((4,), 2.5, np.float32), "step": 7,
+            "rng": np.arange(3)}
+
+
+def sc_ckpt_save(inputs, out):
+    """A (dp=2, tp=2) gang saves a bf16 8x4 leaf sharded (dp, tp), a
+    replicated f32 leaf (a DTensor), a plain tensor, an int and a numpy
+    array: rank 0 into `<out>/ck`, rank k into `<out>/ck_shards/rank_k`."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import build_mesh
+    from ray_tpu_torch.parallel.sharding import P, as_global, local_block
+    from ray_tpu_torch.train import array_checkpoint as ac
+
+    mesh = build_mesh({"dp": 2, "tp": 2}, device="cpu")
+    st = ckpt_state()
+    w = torch.from_numpy(st["w"]).to(torch.bfloat16)
+    state = {"w": as_global(local_block(w, mesh, P("dp", "tp")).contiguous(),
+                            mesh, P("dp", "tp"), shape=w.shape),
+             "b": as_global(torch.from_numpy(st["b"]), mesh, P(None),
+                            shape=(4,)),
+             "plain": torch.arange(6, dtype=torch.int32),
+             "step": st["step"], "rng": st["rng"]}
+    rank = dist.get_rank()
+    d = os.path.join(out, "ck") if rank == 0 else os.path.join(
+        out, "ck_shards", f"rank_{rank}")
+    ac.save_sharded(d, state)
+    dist.barrier()
+    with open(os.path.join(d, f"asv_index.{rank}.json")) as f:
+        index = json.load(f)
+    return {"dir": os.path.join(out, "ck"),
+            "shards": {leaf["path"]: [sh["index"] for sh in leaf["shards"]]
+                       for leaf in index["leaves"] if leaf["kind"] == "array"}}
+
+
+def sc_ckpt_restore(inputs):
+    """The JAX-saved checkpoint at `inputs["jax_ckpt"]` restored onto
+    fsdp=4 and (dp=2, tp=2) DTensors: each rank's local block and the
+    gathered values."""
+    import torch
+
+    from ray_tpu_torch.parallel import build_mesh
+    from ray_tpu_torch.parallel.sharding import P, as_global
+    from ray_tpu_torch.train import array_checkpoint as ac
+
+    out = {}
+    for name, axes, wspec, bspec in (
+            ("fsdp4", {"fsdp": 4}, P("fsdp", None), P("fsdp")),
+            ("dp2tp2", {"dp": 2, "tp": 2}, P("dp", "tp"), P(None))):
+        mesh = build_mesh(axes, device="cpu")
+
+        def like(spec, shape, dtype):
+            n = [mesh.axis_size(a) if a else 1 for a in spec]
+            local = torch.zeros([s // k for s, k in zip(shape, n)],
+                                dtype=dtype)
+            return as_global(local, mesh, spec, shape=shape)
+
+        got = ac.restore_sharded(inputs["jax_ckpt"], {
+            "w": like(wspec, (8, 4), torch.bfloat16),
+            "b": like(bspec, (4,), torch.float32), "step": 0,
+            "rng": np.zeros(3, np.int64)})
+        out[name] = {"w": _np(got["w"].float()),
+                     "w_local": got["w"].to_local().float().numpy(),
+                     "w_dtype": str(got["w"].dtype),
+                     "b": _np(got["b"]), "step": got["step"],
+                     "rng": np.asarray(got["rng"]),
+                     "placements": repr(got["w"].placements)}
+    return out
+
+
 GANGS = {
     "w4": [sc_mesh, sc_device_allreduce, sc_collectives, sc_ring,
            sc_ring_grad, sc_ulysses, sc_gqa, sc_pipeline, sc_moe,
            sc_multislice, sc_compile_cache, sc_gpt4, sc_convert],
     "w8": [sc_gpt8],
+    "zoo": [sc_bert_sharded, sc_moe_gpt_sharded],
+    "ckpt": [sc_ckpt_save, sc_ckpt_restore],
 }
 
 
@@ -472,7 +658,7 @@ def main(argv):
     try:
         fns = GANGS.get(gang) or [globals()[n] for n in gang.split(",")]
         for fn in fns:
-            args = (inputs,) if inspect.signature(fn).parameters else ()
+            args = (inputs, out)[:len(inspect.signature(fn).parameters)]
             results[fn.__name__] = fn(*args)
             dist.barrier()
     finally:

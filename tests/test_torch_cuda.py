@@ -20,7 +20,9 @@ with no `--resources` detects the card; a `client://` driver puts a CUDA
 tensor through the client server and holds the kernel in a num_gpus=1
 task against its plain version), and `parallel/` (a one-rank NCCL mesh
 step of the tiny GPT through `TrainStepRunner(mesh=)` against the same
-step without a mesh, two gloo ranks sharing the card at tp=2).
+step without a mesh, two gloo ranks sharing the card at tp=2), and the
+other model families (BERT's non-causal kernel shape; a graphed MoE-GPT
+and ResNet train step against eager).
 
 Every test here needs an NVIDIA GPU and `nvcc` and skips without them.
 On a machine with a card (and no JAX), run them with
@@ -85,6 +87,8 @@ SHAPES = [
     # grids large enough for the forward's two-warpgroup (128-row) tiles
     (24, 129, 12, 4, 64, torch.bfloat16, True),    # T = 128 + 1, GQA
     (8, 300, 12, 12, 128, torch.float16, False),
+    # the BERT MLM training step's shape: non-causal, B=32, T=512
+    (32, 512, 12, 12, 64, torch.bfloat16, False),
 ]
 
 
@@ -589,6 +593,102 @@ def test_graph_captures_a_train_step(cuda):
     gradient's differences, as in test_adamw_steps_match_optax). Each
     replay launches both kernels n_layer times (backward: twice)."""
     _captured_train_step_matches_eager(cuda, remat=False)
+
+
+def _family_runner(cuda, family, seed):
+    """A tiny MoE-GPT (flash attention) or ResNet on the card in f32 with
+    AdamW(capturable) and its carry, and its train step on one fixed
+    batch from numpy."""
+    from functools import partial
+
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.models import moe_gpt, resnet
+    from ray_tpu_torch.ops.fused_ce import fused_cross_entropy
+
+    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    if family == "moe_gpt":
+        cfg = moe_gpt.MoEGPTConfig.tiny(dtype=torch.float32, remat=False)
+        net = moe_gpt.MoEGPT.from_params(
+            cfg, moe_gpt.init_params(cfg, gen, cuda, torch.float32),
+            attention_fn=partial(flash_attention, causal=True),
+            trainable=True)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (2, 65))).to(cuda)
+
+        def loss_fn():
+            hidden, wte, aux = net(toks[:, :-1], return_hidden=True)
+            return fused_cross_entropy(hidden, wte, toks[:, 1:]) + \
+                moe_gpt.total_aux_loss(aux)
+    else:
+        cfg = resnet.ResNetConfig(stage_sizes=(1, 1), num_classes=10,
+                                  width=8, dtype=torch.float32)
+        net = resnet.ResNet.from_params(
+            cfg, resnet.init_variables(cfg, gen, cuda, torch.float32),
+            trainable=True)
+        x = torch.from_numpy(rng.standard_normal(
+            (4, 64, 64, 3), dtype=np.float32)).to(cuda)
+        y = torch.from_numpy(rng.integers(0, 10, 4)).to(cuda)
+
+        def loss_fn():
+            return F.cross_entropy(net(x, train=True), y)
+    opt = torch.optim.AdamW(net.parameters(), lr=3e-4, weight_decay=1e-4,
+                            capturable=True)
+    named = dict(net.named_parameters())
+    for p in named.values():
+        opt.state[p] = {"step": torch.zeros((), device=cuda),
+                        "exp_avg": torch.zeros_like(p),
+                        "exp_avg_sq": torch.zeros_like(p)}
+    carry = {"params": named,
+             "step": {n: opt.state[p]["step"] for n, p in named.items()}}
+
+    def step(carry, _):
+        loss = loss_fn()
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return carry, loss.detach()
+
+    return net, carry, step
+
+
+@pytest.mark.parametrize("family", ["moe_gpt", "resnet"])
+def test_graph_captures_a_model_family_train_step(cuda, family):
+    """A MoE-GPT step (routing, dense dispatch and combine, the causal
+    kernels) and a ResNet step (BatchNorm updating its running statistics
+    in place) captured by `TrainStepRunner` match the same steps called
+    eagerly over 3 steps from the same weights: losses (rtol 1e-5), the
+    parameters and the running statistics (atol 1e-5)."""
+    from ray_tpu_torch.models import moe_gpt
+    from ray_tpu_torch.parallel import global_cache
+    from ray_tpu_torch.train import TrainStepRunner
+
+    eager_net, eager_carry, eager_step = _family_runner(cuda, family, 0)
+    want = [float(eager_step(eager_carry, None)[1]) for _ in range(3)]
+    net, carry, step = _family_runner(cuda, family, 0)
+    runner = TrainStepRunner(step, device=cuda)
+    before = runner.cache_stats()
+    fwd = flash_attention.launches
+    got = []
+    for _ in range(3):
+        carry, loss = runner.run(carry, None)
+        got.append(float(loss))
+    after = runner.cache_stats()
+    assert {n: after[n] - before[n] for n in after} == {
+        "hits": 2, "misses": 1, "retraces": 0}
+    layers = moe_gpt.MoEGPTConfig.tiny().n_layer if family == "moe_gpt" \
+        else 0
+    assert flash_attention.launches == fwd + 3 * layers
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for (n, p), q in zip(net.named_parameters(), eager_net.parameters()):
+        assert float((p - q).abs().max()) <= 1e-5, n
+    for (n, b), c in zip(net.named_buffers(), eager_net.buffers()):
+        assert float((b - c).abs().max()) <= 1e-5, n
+        assert family != "resnet" or not torch.equal(
+            b, torch.zeros_like(b) if n.endswith(".mean")
+            else torch.ones_like(b)), n
+    assert global_cache().evict(step) == 1
 
 
 def test_graph_captures_a_remat_train_step(cuda):
@@ -1459,8 +1559,8 @@ def test_two_gloo_ranks_share_the_card_at_tp2(cuda):
         os.path.abspath(__file__))))
     import chip_smoke
 
-    (one, two), _ = chip_smoke._parallel_pair([{"dp": 2}, {"tp": 2}],
-                                              "tiny", 5, 4, 64, "cuda")
+    (one, two), _, _ = chip_smoke._parallel_pair([{"dp": 2}, {"tp": 2}],
+                                                 "tiny", 5, 4, 64, "cuda")
     assert one[0]["losses"] == one[1]["losses"]
     assert two[0]["losses"] == two[1]["losses"]
     np.testing.assert_allclose(two[0]["losses"], one[0]["losses"],

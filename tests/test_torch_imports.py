@@ -47,6 +47,8 @@ def test_import_leaves_no_jax_or_ray_tpu_in_sys_modules():
     assert {f"ray_tpu_torch.parallel.{m}" for m in (
         "mesh", "sharding", "collectives", "distributed", "pipeline", "moe",
         "ring_attention")} <= set(mods)
+    assert {f"ray_tpu_torch.models.{m}" for m in (
+        "moe_gpt", "bert", "vit", "resnet")} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -295,3 +297,18 @@ def test_cli_help_imports_neither_torch_nor_jax():
     assert "ray_tpu_torch.scripts.cli" in loaded
     top = {m.split(".")[0] for m in loaded}
     assert not top & {"torch", "jax", "jaxlib", "aiohttp", "ray_tpu"}
+
+
+def test_models_export_every_name_of_the_jax_zoo():
+    """`from ray_tpu_torch.models import *` gives every name that
+    `ray_tpu.models` exports (read from its source: this test imports no
+    JAX)."""
+    tree = ast.parse((ROOT / "ray_tpu" / "models" / "__init__.py")
+                     .read_text())
+    want = next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and node.targets[0].id == "__all__")
+    import ray_tpu_torch.models as port
+
+    assert set(want) <= set(port.__all__)
+    assert all(hasattr(port, name) for name in want)
