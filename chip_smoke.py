@@ -303,7 +303,31 @@ a non-zero exit) on any failed check:
    equal eager's within 1e-3 of each one's largest magnitude. Prints
    per model the step ms eager and graphed, samples/s, peak memory, the
    miss's seconds and the launches;
-18. the `kernels` JSON line (every ported kernel with its numbers), the
+18. rllib: the port's RLlib (`ray_tpu_torch.rllib`) with envs defined
+   here (`SmokeCartPole`, `SmokePendulum`: gymnasium's CartPole-v1 and
+   Pendulum-v1 dynamics, seeding and time limits, passed as callables,
+   so the phase never imports gymnasium; whether the host has it is
+   printed). (a) PPO at `PPOConfig`'s defaults (hidden (64, 64), 2000
+   steps a batch, minibatches of 256, 8 epochs) with its learner on the
+   card (every update one captured graph per minibatch shape) and two
+   env-runner actors of the port's runtime on the CPU (one env each):
+   up to 20 iterations, stopping once the best mean return reaches 120
+   (the learning check of `tests/test_rllib.py`), which it must. Then
+   the first minibatch of a fresh batch through the graphed learner
+   (a replay) and through an eager twin in the same state: every stat
+   and weight within 1e-5 (relative to max(1, |value|)). (b) One
+   iteration on one set of episodes through (a)'s local learner and
+   through a learner actor holding the card (`num_learners=1`,
+   `resources_per_learner={"GPU": 1}`) restored from (a)'s checkpoint:
+   the weights after it equal within 1e-5. (c) The DQN, IMPALA, APPO and
+   SAC learners at their configs' defaults on batches from the smoke's
+   envs: a capture, then three replays, each equal to an eager twin's
+   update within 1e-5. No attention kernel runs (the launch counts stay
+   0). Prints each iteration's sample and learn seconds and mean
+   return, each learner's graphed and eager ms per update and, from a
+   profile, the kernels an update runs (and whether the trace kept both
+   end markers);
+19. the `kernels` JSON line (every ported kernel with its numbers), the
    card line, and last the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -315,6 +339,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import glob
+import importlib.util
 import json
 import os
 import re
@@ -349,6 +374,16 @@ from ray_tpu_torch.ops.flash_attention import (BWD_KERNELS_PER_CALL,
 from ray_tpu_torch.ops.fused_ce import fused_cross_entropy
 from ray_tpu_torch.parallel import cache_stats, global_cache, stack_batches
 from ray_tpu_torch.parallel.ring_attention import full_attention
+from ray_tpu_torch.rllib import (PPO, APPOConfig, DQNConfig, DQNLearner,
+                                 IMPALAConfig, IMPALALearner, PPOConfig,
+                                 QModule, RLModuleSpec, SACConfig,
+                                 SingleAgentEnvRunner)
+from ray_tpu_torch.rllib.algorithms.appo import APPOLearner
+from ray_tpu_torch.rllib.algorithms.sac import SACLearner, SACModule
+from ray_tpu_torch.rllib.connectors import (GAE, columns_from_episodes,
+                                            sequence_batch,
+                                            standardize_advantages)
+from ray_tpu_torch.rllib.utils.replay_buffers import ReplayBuffer
 from ray_tpu_torch.serve import dispatch
 from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
 from ray_tpu_torch.train import TrainStepRunner, array_checkpoint
@@ -5275,6 +5310,432 @@ def phase_models(device="cuda", seed=5, cells=None):
     return rows
 
 
+# -- phase 18: rllib -----------------------------------------------------------
+
+RL_DIR = Path(__file__).resolve().parent / "smoke_rllib"
+RL_SEED = 0
+RL_MAX_ITERS = 20          # PPO iterations at most
+RL_TARGET_RETURN = 120.0   # tests/test_rllib.py's learning check
+RL_CELL_ENVS = 4           # (c): envs of the runner that fills the batches
+RL_UPDATE_TOL = 1e-5       # graphed vs eager, relative to max(1, |value|)
+RL_TIMED_UPDATES = 50      # host-timed updates per learner
+RL_CELL_UPDATES = 4        # (c): the capture's eager call, then 3 replays
+RL_PROFILE_TRIES = 3
+
+
+class _Discrete:
+    """The two attributes of a gymnasium `Discrete` space RLlib reads."""
+
+    def __init__(self, n):
+        self.n, self.shape = n, ()
+
+
+class _Box:
+    """The three attributes of a gymnasium `Box` space RLlib reads."""
+
+    def __init__(self, low, high):
+        self.low = np.asarray(low, np.float32)
+        self.high = np.asarray(high, np.float32)
+        self.shape = self.low.shape
+
+
+def _np_random(seed):
+    # gymnasium.utils.seeding.np_random
+    return np.random.Generator(np.random.PCG64(np.random.SeedSequence(seed)))
+
+
+class SmokeCartPole:
+    """CartPole-v1 without gymnasium: the dynamics, reset distribution and
+    seeding of gymnasium's `classic_control/cartpole.py` (Euler
+    integration, termination at |x| > 2.4 or |theta| > 12 degrees, reward
+    1 a step) and the registration's 500-step time limit."""
+
+    max_episode_steps = 500
+    gravity, masscart, masspole, length = 9.8, 1.0, 0.1, 0.5
+    force_mag, tau = 10.0, 0.02
+    theta_threshold_radians = 12 * 2 * np.pi / 360
+    x_threshold = 2.4
+
+    def __init__(self):
+        self.total_mass = self.masspole + self.masscart
+        self.polemass_length = self.masspole * self.length
+        high = np.array([self.x_threshold * 2, np.inf,
+                         self.theta_threshold_radians * 2, np.inf],
+                        np.float32)
+        self.observation_space = _Box(-high, high)
+        self.action_space = _Discrete(2)
+        self._rng = None
+        self.state = None
+        self._steps = 0
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None or self._rng is None:
+            self._rng = _np_random(seed)
+        self.state = self._rng.uniform(low=-0.05, high=0.05, size=(4,))
+        self._steps = 0
+        return np.array(self.state, dtype=np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self.state
+        force = self.force_mag if action == 1 else -self.force_mag
+        costheta, sintheta = np.cos(theta), np.sin(theta)
+        temp = (force + self.polemass_length * np.square(theta_dot)
+                * sintheta) / self.total_mass
+        thetaacc = (self.gravity * sintheta - costheta * temp) / (
+            self.length * (4.0 / 3.0 - self.masspole * np.square(costheta)
+                           / self.total_mass))
+        xacc = temp - self.polemass_length * thetaacc * costheta \
+            / self.total_mass
+        x = x + self.tau * x_dot
+        x_dot = x_dot + self.tau * xacc
+        theta = theta + self.tau * theta_dot
+        theta_dot = theta_dot + self.tau * thetaacc
+        self.state = np.array((x, x_dot, theta, theta_dot), dtype=np.float64)
+        terminated = bool(x < -self.x_threshold or x > self.x_threshold
+                          or theta < -self.theta_threshold_radians
+                          or theta > self.theta_threshold_radians)
+        self._steps += 1
+        truncated = self._steps >= self.max_episode_steps
+        return (np.array(self.state, dtype=np.float32), 1.0, terminated,
+                truncated, {})
+
+    def close(self):
+        pass
+
+
+class SmokePendulum:
+    """Pendulum-v1 without gymnasium: the dynamics, cost, reset
+    distribution and seeding of gymnasium's `classic_control/pendulum.py`
+    (g = 10) and the registration's 200-step time limit."""
+
+    max_episode_steps = 200
+    max_speed, max_torque, dt, g, m, l = 8.0, 2.0, 0.05, 10.0, 1.0, 1.0
+
+    def __init__(self):
+        high = np.array([1.0, 1.0, self.max_speed], np.float32)
+        self.observation_space = _Box(-high, high)
+        self.action_space = _Box([-self.max_torque], [self.max_torque])
+        self._rng = None
+        self.state = None
+        self._steps = 0
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None or self._rng is None:
+            self._rng = _np_random(seed)
+        high = np.array([np.pi, 1.0])
+        self.state = self._rng.uniform(low=-high, high=high)
+        self._steps = 0
+        return self._obs(), {}
+
+    def _obs(self):
+        theta, thetadot = self.state
+        return np.array([np.cos(theta), np.sin(theta), thetadot],
+                        dtype=np.float32)
+
+    def step(self, u):
+        th, thdot = self.state
+        g, m, l, dt = self.g, self.m, self.l, self.dt
+        u = np.clip(u, -self.max_torque, self.max_torque)[0]
+        costs = (((th + np.pi) % (2 * np.pi)) - np.pi) ** 2 \
+            + 0.1 * thdot ** 2 + 0.001 * (u ** 2)
+        newthdot = thdot + (3 * g / (2 * l) * np.sin(th)
+                            + 3.0 / (m * l ** 2) * u) * dt
+        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+        newth = th + newthdot * dt
+        self.state = np.array([newth, newthdot])
+        self._steps += 1
+        return (self._obs(), -costs, False,
+                self._steps >= self.max_episode_steps, {})
+
+    def close(self):
+        pass
+
+
+def _rl_twin(learner, device):
+    """An eager learner (every update op by op) in `learner`'s state."""
+    twin = type(learner)(learner.spec,
+                         {**learner.config, "compiled_update": False},
+                         device=device)
+    twin.set_state(learner.get_state())
+    return twin
+
+
+def _rl_diff(a, b):
+    """Largest difference of two stats dicts or weight dicts, relative to
+    max(1, |value|)."""
+    return max(float(np.max(np.abs(np.asarray(a[k]) - np.asarray(b[k]))
+                             / np.maximum(1.0, np.abs(np.asarray(a[k])))))
+               for k in a)
+
+
+def _rl_compare(name, graphed, eager, batches):
+    """Each batch through the graphed learner and its eager twin: the worst
+    stat and weight difference, both within RL_UPDATE_TOL."""
+    worst = {"stats": 0.0, "weights": 0.0}
+    for batch in batches:
+        got, want = graphed.update_from_batch(batch), \
+            eager.update_from_batch(batch)
+        worst["stats"] = max(worst["stats"], _rl_diff(want, got))
+        worst["weights"] = max(worst["weights"], _rl_diff(
+            eager.get_weights(), graphed.get_weights()))
+    assert max(worst.values()) <= RL_UPDATE_TOL, (name, worst)
+    return worst
+
+
+def _rl_update_ms(learner, batch, n=RL_TIMED_UPDATES):
+    """Median host ms of one `update_from_batch` (it ends in a sync: the
+    stats come back to the host)."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        learner.update_from_batch(batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _rl_timing(graphed, eager, batch, device):
+    """Graphed against eager on one batch: host ms per update, and on the
+    card the kernels a profiled update runs and their device ms."""
+    row = {"graphed_ms": _rl_update_ms(graphed, batch),
+           "eager_ms": _rl_update_ms(eager, batch)}
+    if device == "cuda":
+        for key, learner in (("graphed", graphed), ("eager", eager)):
+            # a trace may lose an end marker (the engine phases' do too):
+            # take the first of three that has both, else the last, marked
+            for _ in range(RL_PROFILE_TRIES):
+                prof = profile_steps(
+                    lambda: learner.update_from_batch(batch), 3)
+                if prof["trace_complete"]:
+                    break
+            row[f"{key}_kernels"] = prof["kernels_per_step"]
+            row[f"{key}_device_ms"] = prof["device_ms"]
+            row[f"{key}_busy_share"] = prof["busy_share"]
+            row[f"{key}_trace_complete"] = prof["trace_complete"]
+    return row
+
+
+def _rl_kernels_text(row):
+    """The kernels an update runs, graphed and eager, with each trace's
+    completeness."""
+    if "graphed_kernels" not in row:
+        return "kernels per update not measured (no card)"
+    return "; ".join(
+        f"{key} {row[f'{key}_kernels']} kernels per update, device "
+        f"{row[f'{key}_device_ms']:.3f} ms (trace "
+        f"{'complete' if row[f'{key}_trace_complete'] else 'CUT at an end'})"
+        for key in ("graphed", "eager"))
+
+
+def _rl_episodes(env_cls, spec, steps, explore_config=None):
+    """Episodes of a local runner on `env_cls` under `spec`'s module with
+    its seed-0 weights, exploring."""
+    runner = SingleAgentEnvRunner(env_cls, spec, num_envs=RL_CELL_ENVS,
+                                  seed=RL_SEED, explore_config=explore_config)
+    runner.set_weights(spec.build(RL_SEED).get_weights())
+    try:
+        return runner.sample(steps)
+    finally:
+        runner.close()
+
+
+def _rl_cells():
+    """(c): (name, learner class, spec, learner config, batches) of the
+    other learners at their configs' defaults, on batches the smoke's
+    envs give them."""
+    cells = []
+    cfg = DQNConfig()
+    spec = RLModuleSpec(observation_dim=4, action_dim=2, hidden=cfg.hidden,
+                        module_class=QModule)
+    replay = ReplayBuffer(seed=RL_SEED)
+    for ep in _rl_episodes(SmokeCartPole, spec, 1000, {"epsilon": 1.0}):
+        replay.add_episode(ep)
+    batches = []
+    for _ in range(RL_CELL_UPDATES):
+        b = replay.sample(cfg.train_batch_size)
+        b.pop("_indices")
+        batches.append(b)
+    cells.append(("dqn", DQNLearner, spec, cfg.learner_config(), batches))
+    for name, cfg, learner_cls in (("impala", IMPALAConfig(), IMPALALearner),
+                                   ("appo", APPOConfig(), APPOLearner)):
+        spec = RLModuleSpec(observation_dim=4, action_dim=2,
+                            hidden=cfg.hidden)
+        # the algorithm takes several updates on one sampled batch
+        batch = sequence_batch(
+            _rl_episodes(SmokeCartPole, spec, cfg.train_batch_size),
+            max_len=cfg.rollout_fragment_length)
+        cells.append((name, learner_cls, spec, cfg.learner_config(),
+                      [batch] * RL_CELL_UPDATES))
+    cfg = SACConfig()
+    spec = RLModuleSpec(observation_dim=3, action_dim=1, hidden=cfg.hidden,
+                        discrete=False, action_scale=(2.0,),
+                        action_offset=(0.0,), module_class=SACModule)
+    replay = ReplayBuffer(seed=RL_SEED)
+    for ep in _rl_episodes(SmokePendulum, spec, 1000):
+        replay.add_episode(ep)
+    batches = []
+    for u in range(RL_CELL_UPDATES):
+        b = replay.sample(cfg.train_batch_size)
+        b.pop("_indices")
+        b["rng"] = np.asarray([RL_SEED, 977 * u], np.uint32)
+        batches.append(b)
+    cells.append(("sac", SACLearner, spec, cfg.learner_config(), batches))
+    return cells
+
+
+def phase_rllib(device="cuda"):
+    """Phase 18 (module docstring): PPO learns CartPole with its learner on
+    the card as graphs and env runners of the port's runtime; a remote GPU
+    learner takes the same iteration; the other learners graphed against
+    eager."""
+    card = card_line() if device == "cuda" else "cpu"
+    t_phase = time.perf_counter()
+    # the card's host may lack gymnasium: the phase never imports it
+    gym_found = importlib.util.find_spec("gymnasium") is not None
+    assert "gymnasium" not in sys.modules
+    gc.collect()
+    assert not _port_processes(), _port_processes()
+    shutil.rmtree(RL_DIR, ignore_errors=True)
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=256 << 20,
+                       **({} if device == "cuda" else {"num_gpus": 1}))
+    init_s = time.perf_counter() - t0
+    algo = algo_b = None
+    try:
+        # (a) PPO at PPOConfig's defaults: the learner on the card, two
+        # remote CPU env runners
+        cfg = (PPOConfig().environment(SmokeCartPole)
+               .env_runners(num_env_runners=2)
+               .learners(learner_device=device).debugging(seed=RL_SEED))
+        t0 = time.perf_counter()
+        algo = PPO(config=cfg)
+        build_s = time.perf_counter() - t0
+        learner = algo.learner_group.local_learner
+        assert learner.device.type == device and learner.compiled
+        iters, best = [], float("-inf")
+        for _ in range(RL_MAX_ITERS):
+            res = algo.train()
+            ret = res["episode_return_mean"]
+            best = max(best, ret) if np.isfinite(ret) else best
+            iters.append(dict(iteration=res["training_iteration"],
+                              sample_s=res["timers"]["sample_s"],
+                              learn_s=res["timers"]["learn_s"],
+                              return_mean=ret,
+                              total_loss=res["total_loss"],
+                              steps=res["num_env_steps_sampled"]))
+            print(f"rllib ppo iteration {res['training_iteration']}: "
+                  f"return {ret:.1f} (best {best:.1f}); sample "
+                  f"{iters[-1]['sample_s']:.3f} s, learn "
+                  f"{iters[-1]['learn_s']:.3f} s", flush=True)
+            if best >= RL_TARGET_RETURN:
+                break
+        assert best >= RL_TARGET_RETURN, (
+            f"PPO did not reach {RL_TARGET_RETURN} in {RL_MAX_ITERS} "
+            f"iterations: best {best}")
+        ppo_cache = learner.cache.stats.as_dict()
+        # graphs: one per minibatch shape, every other update a replay
+        assert ppo_cache["misses"] <= 2 and ppo_cache["hits"] > 0, ppo_cache
+
+        # the first minibatch of a fresh batch, graphed against eager
+        episodes = algo.env_runner_group.sample(cfg.train_batch_size)
+        gae = GAE(cfg.gamma, cfg.extra["lambda_"], module=algo.spec.build(),
+                  params_getter=algo.learner_group.get_weights)
+        batch = standardize_advantages(
+            episodes, gae(episodes, columns_from_episodes(episodes, {})))
+        perm = np.random.default_rng(RL_SEED).permutation(
+            len(batch["actions"]))
+        mb = {k: v[perm[:cfg.minibatch_size]] for k, v in batch.items()}
+        twin = _rl_twin(learner, device)
+        hits = learner.cache.stats.hits
+        ppo_worst = _rl_compare("ppo", learner, twin, [mb])
+        assert learner.cache.stats.hits == hits + 1  # a replay, no capture
+        ppo_timing = _rl_timing(learner, twin, mb, device)
+        del twin
+
+        # (b) one iteration on the same episodes through a learner actor
+        # holding the card, from (a)'s checkpoint
+        ckpt = RL_DIR / "ckpt"
+        ckpt.mkdir(parents=True)
+        algo.save_checkpoint(str(ckpt))
+        cfg_b = cfg.copy().env_runners(num_env_runners=0).learners(
+            num_learners=1, resources_per_learner={"GPU": 1})
+        t0 = time.perf_counter()
+        algo_b = PPO(config=cfg_b)
+        algo_b.load_checkpoint(str(ckpt))
+        remote_up_s = time.perf_counter() - t0
+        assert algo_b.learner_group.local_learner is None
+        episodes = algo.env_runner_group.sample(cfg.train_batch_size)
+        t0 = time.perf_counter()
+        res_a = algo.update_from_episodes(episodes)
+        local_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_b = algo_b.update_from_episodes(episodes)
+        remote_s = time.perf_counter() - t0
+        remote_diff = _rl_diff(algo.learner_group.get_weights(),
+                               algo_b.learner_group.get_weights())
+        assert remote_diff <= RL_UPDATE_TOL, remote_diff
+        assert abs(res_a["total_loss"] - res_b["total_loss"]) <= \
+            RL_UPDATE_TOL * max(1.0, abs(res_a["total_loss"])), (res_a, res_b)
+        algo_b.stop()
+        algo_b = None
+        algo.stop()
+        algo = None
+
+        # (c) the other learners: graphed against eager on the card
+        cells = {}
+        for name, learner_cls, spec, lcfg, batches in _rl_cells():
+            graphed = learner_cls(spec, lcfg, seed=RL_SEED, device=device)
+            eager = _rl_twin(graphed, device)
+            worst = _rl_compare(name, graphed, eager, batches)
+            stats = graphed.cache.stats.as_dict()
+            assert stats["misses"] == 1 and \
+                stats["hits"] == RL_CELL_UPDATES - 1, (name, stats)
+            cells[name] = dict(worst=worst, cache=stats,
+                               batch_rows=int(next(iter(
+                                   batches[0].values())).shape[0]),
+                               **_rl_timing(graphed, eager, batches[-1],
+                                            device))
+            del graphed, eager
+    finally:
+        for a in (algo_b, algo):
+            if a is not None:
+                a.stop()
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(RL_DIR, ignore_errors=True)
+    _assert_clean()
+    launches = {"fwd": flash_attention.launches,
+                "bwd": flash_attention_bwd.launches}
+    # reinforcement learning runs no attention kernel
+    assert launches == {"fwd": 0, "bwd": 0}, launches
+    assert "gymnasium" not in sys.modules
+    wall_s = time.perf_counter() - t_phase
+    row = dict(gymnasium_found=gym_found, init_s=init_s, build_s=build_s,
+               iterations=iters, best_return=best, ppo_cache=ppo_cache,
+               ppo_graph_vs_eager=ppo_worst, ppo_update=ppo_timing,
+               remote=dict(diff=remote_diff, up_s=remote_up_s,
+                           local_iteration_s=local_s,
+                           remote_iteration_s=remote_s),
+               cells=cells, flash_launches=launches, wall_s=wall_s)
+    print(f"rllib: gymnasium {'found' if gym_found else 'absent'} on this "
+          f"host (not imported); PPO reached {best:.1f} (target "
+          f"{RL_TARGET_RETURN}) in {len(iters)} iterations; sample s "
+          f"{[round(i['sample_s'], 3) for i in iters]}, learn s "
+          f"{[round(i['learn_s'], 3) for i in iters]}; PPO graphs "
+          f"{ppo_cache}; first minibatch graphed vs eager worst "
+          f"{ppo_worst}; update ms graphed {ppo_timing['graphed_ms']:.3f} "
+          f"eager {ppo_timing['eager_ms']:.3f} ({_rl_kernels_text(ppo_timing)})"
+          f"; remote GPU learner vs local "
+          f"weights {remote_diff:.1e} (iteration {remote_s:.2f} s vs "
+          f"{local_s:.2f} s); {wall_s:.1f} s (card: {card})")
+    for name, c in cells.items():
+        print(f"rllib {name}: {c['batch_rows']} rows; graphed vs eager worst "
+              f"{c['worst']}; update ms graphed {c['graphed_ms']:.3f} eager "
+              f"{c['eager_ms']:.3f} ({_rl_kernels_text(c)}); cache "
+              f"{c['cache']}")
+    return row
+
+
 def _numbers(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}
@@ -5496,6 +5957,8 @@ def main() -> int:
     parallel = phase_parallel(k1["losses"], (k1["step_ms"], k4["step_ms"]))
     # the other model families at their published widths, eager and graphed
     models = phase_models()
+    # RLlib: PPO's learner on the card as graphs, env runners as actors
+    rllib = phase_rllib()
 
     kernels = kernels_line(rows, bwd_rows, train, train_llama, train_long,
                            gpt, llama, spec, runtime, serve_row, train_dist,
@@ -5508,7 +5971,7 @@ def main() -> int:
                       "train_dist": train_dist, "train_data": train_data,
                       "dag": dag, "soak": soak, "cluster": cluster,
                       "operator": operator, "parallel": parallel,
-                      "models": models}))
+                      "models": models, "rllib": rllib}))
     print(json.dumps({"kernels": kernels}))
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
           f"{build_s:.1f} s of it")

@@ -17,7 +17,10 @@ Mapping, by the Flax names:
   kw] (OIHW): ViT's patchify, ResNet's convolutions;
 - MoE-GPT's router and experts keep their JAX layouts; BERT's `wtt` and
   ViT's `cls` and `pos_embed` keep their shapes; ResNet's `batch_stats`
-  (`mean`, `var`) become the model's f32 buffers of those names.
+  (`mean`, `var`) become the model's f32 buffers of those names;
+- an RLlib module's tree (`rl_module_params_from_jax`) becomes the f32
+  numpy `{name: array}` weights `RLModule.set_weights` takes, each Dense
+  kernel transposed.
 
 Projections and embeddings are stored in `dtype` (default `cfg.dtype`):
 Flax casts each to `cfg.dtype` at use, so a forward sees the same
@@ -224,4 +227,51 @@ def resnet_variables_from_jax(variables, cfg, device=None,
             for name in ("mean", "var"):
                 out[f"{blk}.{name}"] = _tensor(leaves[name], device,
                                                torch.float32)
+    return out
+
+
+def _mlp_from_jax(out, prefix, hidden_nodes, head_nodes):
+    """A port `_MLP`'s weights: Flax Dense nodes of the torso, then the
+    heads, as `{prefix}.torso.{i}` / `{prefix}.heads.{j}` arrays."""
+    for group, nodes in (("torso", hidden_nodes), ("heads", head_nodes)):
+        for i, node in enumerate(nodes):
+            out[f"{prefix}.{group}.{i}.weight"] = np.ascontiguousarray(
+                np.asarray(node["kernel"], np.float32).T)
+            out[f"{prefix}.{group}.{i}.bias"] = np.asarray(node["bias"],
+                                                           np.float32)
+
+
+def _dense_nodes(tree, first, count):
+    return [tree[f"Dense_{i}"] for i in range(first, first + count)]
+
+
+def rl_module_params_from_jax(params, spec) -> Dict[str, np.ndarray]:
+    """RLlib module weights (`RLModule.get_weights()`'s `{name: array}`,
+    f32 numpy) from a JAX RLModule param tree, for the module `spec`
+    builds: the actor-critic tree (`_MLPTorso_0` + `Dense_0` the logits,
+    `_MLPTorso_1` + `Dense_1` the value), the Q tree (`_MLPTorso_0` +
+    `Dense_0`) or the SAC tree ({"policy", "q1", "q2", "log_alpha"}, any
+    of them: a SAC learner's target critics are {"q1", "q2"})."""
+    k = len(spec.hidden)
+    out: Dict[str, np.ndarray] = {}
+    if any(key in params for key in ("policy", "q1", "q2", "log_alpha")):
+        if "policy" in params:
+            p = unboxed_params(params["policy"])
+            _mlp_from_jax(out, "policy", _dense_nodes(p, 0, k),
+                          _dense_nodes(p, k, 2))
+        for q in ("q1", "q2"):
+            if q in params:
+                p = unboxed_params(params[q])
+                _mlp_from_jax(out, q, _dense_nodes(p, 0, k),
+                              _dense_nodes(p, k, 1))
+        if "log_alpha" in params:
+            out["log_alpha"] = np.asarray(params["log_alpha"], np.float32)
+        return out
+    p = unboxed_params(params)
+    torso = lambda name: _dense_nodes(p[name], 0, k)  # noqa: E731
+    if "_MLPTorso_1" in p:  # actor-critic: two torsos
+        _mlp_from_jax(out, "pi", torso("_MLPTorso_0"), [p["Dense_0"]])
+        _mlp_from_jax(out, "vf", torso("_MLPTorso_1"), [p["Dense_1"]])
+    else:
+        _mlp_from_jax(out, "q", torso("_MLPTorso_0"), [p["Dense_0"]])
     return out

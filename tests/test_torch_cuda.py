@@ -22,7 +22,8 @@ task against its plain version), and `parallel/` (a one-rank NCCL mesh
 step of the tiny GPT through `TrainStepRunner(mesh=)` against the same
 step without a mesh, two gloo ranks sharing the card at tp=2), and the
 other model families (BERT's non-causal kernel shape; a graphed MoE-GPT
-and ResNet train step against eager).
+and ResNet train step against eager), and RLlib (a graphed SAC learner
+update against an eager twin).
 
 Every test here needs an NVIDIA GPU and `nvcc` and skips without them.
 On a machine with a card (and no JAX), run them with
@@ -1568,3 +1569,23 @@ def test_two_gloo_ranks_share_the_card_at_tp2(cuda):
     n = chip_smoke.PARALLEL_PAIR_STEPS * 2  # the tiny GPT's two layers
     assert [r["fwd_launches"] for r in two] == [n, n]
     assert two[0]["local_shapes"]["h0.attn_qkv.weight"] == [96, 64]
+
+
+def test_rllib_graphed_update_matches_eager(cuda):
+    """Phase 18 (c) of `chip_smoke.py` for SAC: its learner at SACConfig's
+    defaults on Pendulum-v1 batches of the smoke's env; the capture's
+    eager call, then three graph replays, each update equal to an eager
+    twin's within `chip_smoke.RL_UPDATE_TOL`. The reparameterisation
+    noise is an input drawn from each batch's words, so a replay uses the
+    new batch's noise, as the eager twin does."""
+    import chip_smoke
+
+    name, learner_cls, spec, config, batches = next(
+        c for c in chip_smoke._rl_cells() if c[0] == "sac")
+    graphed = learner_cls(spec, config, seed=chip_smoke.RL_SEED,
+                          device="cuda")
+    eager = chip_smoke._rl_twin(graphed, "cuda")
+    assert graphed.compiled and not eager.compiled
+    chip_smoke._rl_compare(name, graphed, eager, batches)
+    assert graphed.cache.stats.as_dict() == {
+        "hits": len(batches) - 1, "misses": 1, "retraces": 0}

@@ -49,6 +49,7 @@ def test_import_leaves_no_jax_or_ray_tpu_in_sys_modules():
         "ring_attention")} <= set(mods)
     assert {f"ray_tpu_torch.models.{m}" for m in (
         "moe_gpt", "bert", "vit", "resnet")} <= set(mods)
+    assert set(_rllib_modules()) <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -297,6 +298,61 @@ def test_cli_help_imports_neither_torch_nor_jax():
     assert "ray_tpu_torch.scripts.cli" in loaded
     top = {m.split(".")[0] for m in loaded}
     assert not top & {"torch", "jax", "jaxlib", "aiohttp", "ray_tpu"}
+
+
+def _rllib_modules():
+    """The modules of the JAX package's `ray_tpu/rllib/` (23 files), named
+    as the port's counterparts."""
+    jax_root = ROOT / "ray_tpu" / "rllib"
+    out = []
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        out.append(".".join(("ray_tpu_torch", "rllib", *parts)))
+    return out
+
+
+def test_rllib_has_every_module_and_imports_no_gymnasium():
+    """`ray_tpu_torch/rllib/` has a counterpart of each of the 23 files of
+    `ray_tpu/rllib/`; importing all of them imports neither gymnasium
+    (only an env given by its gymnasium id does) nor JAX."""
+    mods = _rllib_modules()
+    assert len(mods) == 23
+    jax_files = sorted(p.relative_to(ROOT / "ray_tpu").as_posix()
+                       for p in (ROOT / "ray_tpu" / "rllib").rglob("*.py"))
+    port_files = sorted(p.relative_to(PKG).as_posix()
+                        for p in (PKG / "rllib").rglob("*.py"))
+    assert port_files == jax_files
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(mods) <= set(loaded)
+    assert not [m for m in loaded
+                if m == "gymnasium" or m.startswith("gymnasium.")]
+    assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_rllib_exports_every_name_of_the_jax_rllib():
+    """`ray_tpu_torch.rllib` and its `algorithms` and `offline` packages
+    export every name their JAX counterparts do (read from the sources:
+    this test imports no JAX)."""
+    import importlib
+
+    for sub in ("", ".algorithms", ".offline"):
+        init = (ROOT / "ray_tpu" / "rllib" / sub.strip(".") / "__init__.py")
+        tree = ast.parse(init.read_text())
+        want = next(ast.literal_eval(node.value) for node in tree.body
+                    if isinstance(node, ast.Assign)
+                    and node.targets[0].id == "__all__")
+        port = importlib.import_module(f"ray_tpu_torch.rllib{sub}")
+        assert set(want) <= set(port.__all__), sub
+        assert all(hasattr(port, name) for name in want), sub
 
 
 def test_models_export_every_name_of_the_jax_zoo():
