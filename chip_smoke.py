@@ -19,16 +19,17 @@ a non-zero exit) on any failed check:
    the card at the serving shapes (GPT-2 prefill, Llama GQA, non-causal,
    the long-T regime, f32/fp16, head_dim 16/32/128) and the training
    paths' shapes (GPT-2 B=16 T=1024, Llama GQA 12:4 B=16 T=1024, B=4
-   T=4096, MoE-GPT B=8 T=1024, BERT B=32 T=512 non-causal), with the
-   kernel's time, the plain version's, a PyTorch library
+   T=4096, MoE-GPT B=8 T=1024, BERT B=32 T=512 non-causal) and the
+   rank shapes of phase 17 (b) (Llama GQA 6:2 and MoE-GPT 6 heads), with
+   the kernel's time, the plain version's, a PyTorch library
    call's (a yardstick only), the least time the card could take, and the
    route that ran (`sm90`: wgmma + TMA ring, bf16/fp16; `f32`: CUDA
    cores);
 4. backward kernels: `flash_attention_bwd` (dQ and dK/dV) against its
    plain version at the training shapes (GPT-2 B=16 T=1024, Llama GQA
    12:4, long context B=4 T=4096, non-causal, ragged T, fp16 d=128, f32
-   d=16/32, MoE-GPT B=8 T=1024, BERT B=32 T=512 non-causal), with the same
-   four times (the library's is SDPA forward +
+   d=16/32, MoE-GPT B=8 T=1024, BERT B=32 T=512 non-causal, and the rank
+   shapes of phase 17 (b)), with the same four times (the library's is SDPA forward +
    backward minus SDPA forward);
 5. training: GPT-2 125M at full width and depth (bf16 compute, f32
    master weights, remat off), B=16, T=1024, flash attention, fused
@@ -283,7 +284,17 @@ a non-zero exit) on any failed check:
    checksum over the restored values equals the saver's; the step's loss
    within 5e-3 relative of the pair's 4th; the launches; no process or
    segment left. Prints the save and restore seconds and the bytes each
-   rank wrote;
+   rank wrote. (a) again for phase 5's Llama-125M (`train_llama`'s seed,
+   weights and batch; `models.llama.sharded_loss`: the fused qkv and
+   `[gate; up]` gathered and sliced to the rank's heads and columns) in a
+   one-rank gang, held to `train_llama`'s K=1 losses and printed beside
+   its step ms. (c) Phase 5's GPT-2 at dropout 0.1: 4 eager steps, then
+   4 calls of `TrainStepRunner` at K=1 (the miss, then 3 replays) from
+   the same weights and a CUDA generator in the same state, carried in
+   the step's carry, which `compiled_step` registers with the graph.
+   Checks: each graphed loss within TRAJ_RTOL of eager's, the
+   generators' states equal after the steps, the losses more than 1e-4
+   away from phase 5's (dropout 0), the launches;
 17. models: the other model families at their published widths (bf16
    compute, f32 master weights from a torch.Generator seed, data from
    numpy, AdamW(3e-4, weight decay 1e-4), remat off): MoE-GPT (GPT-2
@@ -302,7 +313,19 @@ a non-zero exit) on any failed check:
    `sm90`; ResNet's running statistics all moved, and the graphed run's
    equal eager's within 1e-3 of each one's largest magnitude. Prints
    per model the step ms eager and graphed, samples/s, peak memory, the
-   miss's seconds and the launches;
+   miss's seconds and the launches. (b) Two processes on the one card
+   in one gloo group, eager, 2 steps each: Llama-125M (`train_llama`'s
+   weights and batch) at tp=2 (6 query heads and the 2 kv heads they read
+   a rank) and at sp=2 (Ulysses), MoE-GPT (these weights and batch) at
+   tp=2 (the experts' hidden width split, their outputs summed over tp)
+   and at sp=2 (the global per-row slot order), ViT-B/16 and ResNet-50 at
+   fsdp=2 on (a)'s 64 images (the `embed` shards gathered at use;
+   ResNet's BatchNorm on the global batch's statistics). Checks: both
+   ranks' losses equal and within 5e-3 relative of the unsharded run's
+   (Llama: phase 5's eager steps; the others: (a)'s eager steps, AdamW
+   capturable as there), falling; the flash kernels n_layer
+   times a step a rank (twice that backward) for Llama and MoE-GPT, none
+   for ViT and ResNet; ResNet's running statistics equal on both ranks;
 18. rllib: the port's RLlib (`ray_tpu_torch.rllib`) with envs defined
    here (`SmokeCartPole`, `SmokePendulum`: gymnasium's CartPole-v1 and
    Pendulum-v1 dynamics, seeding and time limits, passed as callables,
@@ -793,6 +816,9 @@ KERNEL_SHAPES = [
     ("moe-gpt B=8 T=1024", 8, 1024, 12, 12, 64, torch.bfloat16, True),
     ("bert MLM B=32 T=512 non-causal", 32, 512, 12, 12, 64, torch.bfloat16,
      False),
+    ("llama rank GQA 6:2 B=16 T=1024", 16, 1024, 6, 2, 64, torch.bfloat16,
+     True),
+    ("moe-gpt rank H=6 B=8 T=1024", 8, 1024, 6, 6, 64, torch.bfloat16, True),
 ]
 MAIN_SHAPE = "gpt2 prefill T=1024"
 TRAIN_SHAPE = "gpt2 train B=16 T=1024"
@@ -803,6 +829,12 @@ TRAIN_LONG_SHAPE = "long B=4 T=4096"
 # BERT (non-causal) inside a training step
 MOE_SHAPE = "moe-gpt B=8 T=1024"
 BERT_SHAPE = "bert MLM B=32 T=512 non-causal"
+# the shapes a rank of the two-rank runs of phase 17 (b) gives both
+# kernels: Llama-125M at tp=2 (6 query heads, the 2 kv heads they read)
+# or at sp=2 (Ulysses: 6 of the 12 query heads, 2 of the 4 kv heads), and
+# MoE-GPT at tp=2 or sp=2 (6 of the 12 heads)
+RANK_LLAMA_SHAPE = "llama rank GQA 6:2 B=16 T=1024"
+RANK_MOE_SHAPE = "moe-gpt rank H=6 B=8 T=1024"
 BWD_SHAPES = [
     # (label, b, t, h, h_kv, d, dtype, causal)
     (TRAIN_SHAPE, 16, 1024, 12, 12, 64, torch.bfloat16, True),
@@ -816,6 +848,8 @@ BWD_SHAPES = [
     ("f32 d=16 B=1 T=50", 1, 50, 4, 2, 16, torch.float32, False),
     (MOE_SHAPE, 8, 1024, 12, 12, 64, torch.bfloat16, True),
     (BERT_SHAPE, 32, 512, 12, 12, 64, torch.bfloat16, False),
+    (RANK_LLAMA_SHAPE, 16, 1024, 6, 2, 64, torch.bfloat16, True),
+    (RANK_MOE_SHAPE, 8, 1024, 6, 6, 64, torch.bfloat16, True),
 ]
 
 
@@ -4546,30 +4580,9 @@ def _pick_strategy(n_devices):
     return ShardingStrategy(dp=rem, **axes)
 
 
-def _sharded_setup(strategy, model, seed, batch, seq, device, capturable):
-    """The `train` phase's GPT-2 (same seed, weights and batch) placed on
-    `strategy`'s mesh over the process group: the parameters by
-    `param_shardings` (this rank's shards), the batch by `shard_batch`
-    (this rank's block), AdamW over the shards and the sharded step."""
-    import torch.distributed as dist
-
-    from ray_tpu_torch.parallel import logical_axis_rules, shard_batch
-    from ray_tpu_torch.parallel.sharding import param_shardings, shard_params
-
-    mesh = strategy.build_mesh(device=device)
-    cfg = getattr(gpt_mod.GPTConfig, model)(remat=False, max_seq_len=seq)
-    shardings = param_shardings(mesh, gpt_mod.param_logical_axes(cfg),
-                                logical_axis_rules(strategy))
-    gen = torch.Generator(device=device).manual_seed(seed)
-    full = gpt_mod.init_params(cfg, gen, device=device, dtype=torch.float32)
-    net = gpt_mod.GPT.from_params(
-        cfg, shard_params(full, mesh, shardings),
-        attention_fn=partial(flash_attention, causal=True), trainable=True)
-    del full
-    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
-                                                (batch, seq + 1))
-    data = {k: v.to_local() for k, v in shard_batch(
-        {"x": toks[:, :-1], "y": toks[:, 1:]}, mesh, strategy).items()}
+def _sharded_train(mod, net, mesh, shardings, capturable):
+    """AdamW over `net`'s shards and the sharded step of model module
+    `mod` (`sharded_loss`, `reduce_gradients`, AdamW): (carry, step)."""
     opt = torch.optim.AdamW(net.parameters(), lr=3e-4, betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=1e-4,
                             capturable=capturable)
@@ -4577,17 +4590,56 @@ def _sharded_setup(strategy, model, seed, batch, seq, device, capturable):
     params = carry["params"]
 
     def train_step(carry, data):
-        loss = gpt_mod.sharded_loss(net, data["x"], data["y"], mesh,
-                                    shardings)
+        loss = mod.sharded_loss(net, data["x"], data["y"], mesh, shardings)
         loss.backward()
         gpt_mod.reduce_gradients(params, mesh, shardings)
         opt.step()
         opt.zero_grad(set_to_none=True)
         return carry, gpt_mod.global_loss(loss, mesh)
 
-    local = {n: tuple(p.shape) for n, p in params.items()
-             if n in ("wte", "h0.attn_qkv.weight", "h0.mlp_down.weight")}
-    return dict(mesh=mesh, cfg=cfg, carry=carry, data=data, step=train_step,
+    return carry, train_step
+
+
+# the language models phase 16 shards: (module, config class, model class)
+SHARDED_LMS = {"gpt": (gpt_mod, gpt_mod.GPTConfig, gpt_mod.GPT),
+               "llama": (llama_mod, llama_mod.LlamaConfig, llama_mod.Llama)}
+
+
+def _sharded_setup(strategy, model, seed, batch, seq, device, capturable,
+                   family="gpt"):
+    """The `train` phase's GPT-2 (`train_llama`'s Llama with
+    `family="llama"`; `model` names the config's constructor; same seed,
+    weights and batch) placed on `strategy`'s mesh over the process
+    group: the parameters by `param_shardings` (this rank's shards), the
+    batch by `shard_batch` (this rank's block), AdamW over the shards and
+    the sharded step."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import logical_axis_rules, shard_batch
+    from ray_tpu_torch.parallel.sharding import param_shardings, shard_params
+
+    mod, cfg_cls, net_cls = SHARDED_LMS[family]
+    mesh = strategy.build_mesh(device=device)
+    cfg = getattr(cfg_cls, model)(remat=False, max_seq_len=seq)
+    shardings = param_shardings(mesh, mod.param_logical_axes(cfg),
+                                logical_axis_rules(strategy))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    full = mod.init_params(cfg, gen, device=device, dtype=torch.float32)
+    net = net_cls.from_params(
+        cfg, shard_params(full, mesh, shardings),
+        attention_fn=partial(flash_attention, causal=True), trainable=True)
+    del full
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (batch, seq + 1))
+    data = {k: v.to_local() for k, v in shard_batch(
+        {"x": toks[:, :-1], "y": toks[:, 1:]}, mesh, strategy).items()}
+    carry, train_step = _sharded_train(mod, net, mesh, shardings,
+                                       capturable)
+    local = {n: tuple(p.shape) for n, p in carry["params"].items()
+             if n in ("wte", "h0.attn_qkv.weight", "h0.mlp_down.weight",
+                      "layer0.attn_qkv.weight", "layer0.mlp_gate_up.weight")}
+    return dict(mesh=mesh, cfg=cfg, mod=mod, carry=carry, data=data,
+                step=train_step,
                 shardings=shardings, local_shapes=local,
                 backend=dist.get_backend(), world=dist.get_world_size(),
                 rank=dist.get_rank())
@@ -4643,11 +4695,12 @@ def _parallel_worker(config):
     t0 = time.perf_counter()
     s = _sharded_setup(strategy, config["model"], config["seed"],
                        config["batch"], config["seq"], device,
-                       capturable=device == "cuda")
+                       capturable=device == "cuda",
+                       family=config.get("family", "gpt"))
     setup_s = time.perf_counter() - t0
     cfg, mesh, carry = s["cfg"], s["mesh"], s["carry"]
     tokens = config["batch"] * config["seq"]
-    flops = gpt_mod.flops_per_token(cfg, config["seq"]) * tokens
+    flops = s["mod"].flops_per_token(cfg, config["seq"]) * tokens
     runs, losses = [], []
     if device == "cuda":
         torch.cuda.synchronize()
@@ -4902,9 +4955,11 @@ def phase_parallel(want_losses, ref_ms, model="gpt2_125m", batch=16,
 
 
 def parallel_gang(want_losses, ref_ms, model="gpt2_125m", batch=16,
-                  seq=1024, seed=3, device="cuda", workers=None):
+                  seq=1024, seed=3, device="cuda", workers=None,
+                  family="gpt"):
     """Phase 16 (a); `workers` (default: one per visible card, one on the
-    CPU) sizes the gang."""
+    CPU) sizes the gang; `family` "llama" (with `model="llama_125m"`)
+    trains `train_llama`'s Llama instead, held to its losses."""
     from ray_tpu_torch import train as train_mod
     from ray_tpu_torch.air import RunConfig, ScalingConfig
 
@@ -4923,7 +4978,7 @@ def parallel_gang(want_losses, ref_ms, model="gpt2_125m", batch=16,
         trainer = train_mod.TorchTrainer(
             _parallel_loop,
             train_loop_config=dict(device=device, model=model, batch=batch,
-                                   seq=seq, seed=seed),
+                                   seq=seq, seed=seed, family=family),
             scaling_config=ScalingConfig(num_workers=n, use_gpu=True),
             backend_config=train_mod.TorchConfig(
                 distributed="on",
@@ -4938,7 +4993,7 @@ def parallel_gang(want_losses, ref_ms, model="gpt2_125m", batch=16,
     shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
 
     m = result.metrics
-    n_layer = getattr(gpt_mod.GPTConfig, model)().n_layer
+    n_layer = getattr(SHARDED_LMS[family][1], model)().n_layer
     steps = PARALLEL_K1_STEPS + 4 * PARALLEL_K4_CALLS
     want_backend = "nccl" if device == "cuda" else "gloo"
     losses = m["losses"]
@@ -4950,8 +5005,9 @@ def parallel_gang(want_losses, ref_ms, model="gpt2_125m", batch=16,
     k4 = [r["ms"] / 4 for r in m["runs"] if r["k"] == 4 and not r["miss"]]
     miss = {r["k"]: r["ms"] / 1e3 for r in m["runs"] if r["miss"]}
     pool = {r["k"]: r["pool_gib"] for r in m["runs"] if r["miss"]}
-    row = dict(world=n, mesh=m["mesh"], backend=m["backend"],
-               losses=losses, worst_loss_rel=worst, loss_rtol=tol,
+    row = dict(family=family, world=n, mesh=m["mesh"],
+               backend=m["backend"], losses=losses, worst_loss_rel=worst,
+               loss_rtol=tol,
                fit_s=fit_s, setup_s=m["setup_s"],
                k1_step_ms=statistics.median(k1), k1_step_ms_all=k1,
                k4_step_ms=statistics.median(k4), k4_step_ms_all=k4,
@@ -4962,11 +5018,12 @@ def parallel_gang(want_losses, ref_ms, model="gpt2_125m", batch=16,
                bwd_per_step_per_rank=m["bwd_launches"] / steps,
                local_shapes=m["local_shapes"],
                cache={r["k"]: r["cache"] for r in m["runs"] if "cache" in r})
-    print(f"parallel (a): {n} GPU worker(s), {m['backend']}, mesh "
+    ref = "train" if family == "gpt" else f"train_{family}"
+    print(f"parallel (a) {family}: {n} GPU worker(s), {m['backend']}, mesh "
           f"{m['mesh']}; losses {[round(x, 4) for x in losses]}, worst rel "
-          f"difference from `train` K=1 {worst:.2e} (tol {tol}); step ms "
+          f"difference from `{ref}` K=1 {worst:.2e} (tol {tol}); step ms "
           f"K=1 {row['k1_step_ms']:.2f} (runs {[round(x, 2) for x in k1]}) "
-          f"vs `train` K=1 {ref_ms[0]:.2f}; K=4 {row['k4_step_ms']:.2f} vs "
+          f"vs `{ref}` K=1 {ref_ms[0]:.2f}; K=4 {row['k4_step_ms']:.2f} vs "
           f"{ref_ms[1]:.2f}; miss {miss} s, graph pool {pool} GiB, peak "
           f"{m['peak_gib']:.2f} GiB; launches per step per rank fwd "
           f"{row['fwd_per_step_per_rank']:.0f} bwd "
@@ -5078,6 +5135,93 @@ def _check_restore(restore, n_layer, per, card):
           f" vs the pair's 4th {loss4:.5f} (rel {err:.1e}, tol "
           f"{PARALLEL_SPLIT_LOSS_RTOL}) (card: {card})")
     return row
+
+
+DROPOUT_RATE = 0.1
+DROPOUT_STEPS = 4          # eager steps; graphed: the miss, then 3 replays
+
+
+def dropout_row(plain_losses, model="gpt2_125m", batch=16, seq=1024, seed=3,
+                device="cuda"):
+    """Phase 16 (c): the `train` phase's GPT-2 (same seed, weights and
+    batch) at dropout 0.1, `DROPOUT_STEPS` eager steps, then as many
+    through `TrainStepRunner` at K=1 from the same weights and a generator
+    in the same state (the step's `torch.Generator`, in the carry, is
+    registered with the graph): each graphed loss within TRAJ_RTOL of
+    eager's at its step, the generators' states equal after the steps,
+    and the losses away from `plain_losses` (`train`'s, dropout 0)."""
+    card = card_line() if device == "cuda" else "cpu"
+    cfg = getattr(gpt_mod.GPTConfig, model)(remat=False, max_seq_len=seq,
+                                            dropout=DROPOUT_RATE)
+    per = 1 if device == "cuda" else 0
+    runs = {}
+    for graphed in (False, True):
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        net, x, y = _train_setup("gpt", cfg, seed, batch, seq,
+                                 partial(flash_attention, causal=True),
+                                 device)
+        opt = torch.optim.AdamW(net.parameters(), lr=3e-4,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4,
+                                capturable=device == "cuda")
+        carry = _adamw_carry(net, opt)
+        carry["generator"] = torch.Generator(device=device).manual_seed(
+            seed)
+
+        def step(carry, data):
+            hidden, wte = net(data["x"], return_hidden=True,
+                              deterministic=False,
+                              generator=carry["generator"])
+            loss = fused_cross_entropy(hidden, wte, data["y"])
+            loss.backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            return carry, loss.detach()
+
+        run = TrainStepRunner(step, device=device).run if graphed else step
+        flash_attention.launches = 0
+        flash_attention_bwd.launches = 0
+        losses, ms = [], []
+        for _ in range(DROPOUT_STEPS):
+            t0 = time.perf_counter()
+            carry, loss = run(carry, {"x": x, "y": y})
+            losses.append(float(loss))  # a host read: the step's end
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[graphed] = dict(losses=losses, step_ms=ms,
+                             fwd=flash_attention.launches,
+                             bwd=flash_attention_bwd.launches,
+                             state=carry["generator"].get_state())
+        if graphed:
+            global_cache().evict(step)
+        del net, opt, carry, step, run
+    eager, graph = runs[False], runs[True]
+    err = _traj_err(graph["losses"], eager["losses"])
+    off = _traj_err(eager["losses"], plain_losses)
+    print(f"parallel (c) dropout {DROPOUT_RATE}: GPT-2 B={batch} T={seq}; "
+          f"losses eager {[round(v, 4) for v in eager['losses']]} graphed "
+          f"{[round(v, 4) for v in graph['losses']]} (worst rel {err:.1e}, "
+          f"tol {TRAJ_RTOL}); {off:.1e} from dropout 0's; step ms eager "
+          f"{[round(v, 2) for v in eager['step_ms']]} graphed "
+          f"{[round(v, 2) for v in graph['step_ms']]}; launches fwd/bwd "
+          f"eager {eager['fwd']}/{eager['bwd']} graphed "
+          f"{graph['fwd']}/{graph['bwd']} (card: {card})")
+    assert all(np.isfinite(eager["losses"] + graph["losses"]))
+    assert err <= TRAJ_RTOL, (eager["losses"], graph["losses"])
+    assert torch.equal(eager["state"], graph["state"])
+    assert off > 1e-4, (eager["losses"], plain_losses)
+    for run in (eager, graph):
+        assert run["fwd"] == cfg.n_layer * DROPOUT_STEPS * per, run["fwd"]
+        assert run["bwd"] == cfg.n_layer * DROPOUT_STEPS * \
+            BWD_KERNELS_PER_CALL * per, run["bwd"]
+    return dict(rate=DROPOUT_RATE, eager_losses=eager["losses"],
+                graphed_losses=graph["losses"], rel_err=err,
+                rel_from_plain=off, eager_step_ms=eager["step_ms"],
+                graphed_step_ms=graph["step_ms"],
+                fwd_launches=graph["fwd"], bwd_launches=graph["bwd"],
+                eager_fwd_launches=eager["fwd"],
+                eager_bwd_launches=eager["bwd"])
 
 
 MODELS_STEPS = 3            # eager steps, then as many through the runner
@@ -5308,6 +5452,201 @@ def phase_models(device="cuda", seed=5, cells=None):
                  f"{stats_err:.1e} (tol {MODELS_STATS_RTOL})")
               + f"; {wall_s:.1f} s (card: {card})")
     return rows
+
+
+FAMILY_PAIR_STEPS = 2      # eager steps of each case of phase 17 (b)
+# phase 17 (b): (family, mesh axes) of the two-rank gloo runs on the card
+FAMILY_PAIRS = (("llama", {"tp": 2}), ("llama", {"sp": 2}),
+                ("moe_gpt", {"tp": 2}), ("moe_gpt", {"sp": 2}),
+                ("vit", {"fsdp": 2}), ("resnet50", {"fsdp": 2}))
+
+
+# `_family_sharded_setup(..., tiny=True)`'s configs, for a rehearsal on
+# the CPU: (Llama's batch and sequence, MoE-GPT's tokens, images' batch
+# and size)
+FAMILY_TINY = dict(llama=(4, 64), moe_gpt=(8, 65), image=(8, 32))
+
+
+def _family_sharded_setup(family, axes, seed, device, tiny=False):
+    """A sharded eager step of `family` on `axes`' mesh over the process
+    group: Llama as `train_llama` (seed 3, B=16, T=1024, AdamW as there),
+    the others as phase 17's cells (`seed`; MoE-GPT at B=8, ViT-B/16 and
+    ResNet-50 at B=64, AdamW capturable on the card as there), the
+    parameters placed by `param_shardings`, AdamW over the shards. With
+    `tiny`, each family's tiny config (`FAMILY_TINY`)."""
+    from ray_tpu_torch.models import moe_gpt, resnet, vit
+    from ray_tpu_torch.parallel import (ShardingStrategy, logical_axis_rules,
+                                        shard_batch)
+    from ray_tpu_torch.parallel.sharding import param_shardings, shard_params
+
+    strategy = ShardingStrategy(**axes)
+    if family == "llama":
+        b, t = FAMILY_TINY["llama"] if tiny else (16, 1024)
+        return _sharded_setup(strategy, "tiny" if tiny else "llama_125m", 3,
+                              b, t, device, capturable=False,
+                              family="llama")
+    mesh = strategy.build_mesh(device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    batch, size, classes = (*FAMILY_TINY["image"], 10) if tiny \
+        else (64, 224, 1000)
+    kw = {}
+    if family == "moe_gpt":
+        mod, net_cls = moe_gpt, moe_gpt.MoEGPT
+        cfg = moe_gpt.MoEGPTConfig.tiny(remat=False) if tiny else \
+            moe_gpt.MoEGPTConfig(remat=False)
+        full = moe_gpt.init_params(cfg, gen, device, torch.float32)
+        toks = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, FAMILY_TINY["moe_gpt"] if tiny else (8, 1025))
+        batch = {"x": toks[:, :-1], "y": toks[:, 1:]}
+        kw = dict(attention_fn=partial(flash_attention, causal=True))
+    elif family == "vit":
+        mod, net_cls = vit, vit.ViT
+        cfg = vit.ViTConfig.tiny(remat=False) if tiny else \
+            vit.ViTConfig.base_16(remat=False)
+        full = vit.init_params(cfg, gen, device, torch.float32)
+        batch = _images(batch, size, classes, seed, device)
+    else:
+        mod, net_cls = resnet, resnet.ResNet
+        cfg = resnet.ResNetConfig(stage_sizes=(1, 1), width=8,
+                                  num_classes=10, small_images=True) \
+            if tiny else resnet.ResNetConfig.resnet50()
+        full = resnet.init_variables(cfg, gen, device, torch.float32)
+        batch = _images(batch, size, classes, seed, device)
+    shardings = param_shardings(mesh, mod.param_logical_axes(cfg),
+                                logical_axis_rules(strategy))
+    net = net_cls.from_params(cfg, shard_params(full, mesh, shardings),
+                              trainable=True, **kw)
+    del full
+    data = {k: v.to_local() for k, v in
+            shard_batch(batch, mesh, strategy).items()}
+    carry, step = _sharded_train(mod, net, mesh, shardings,
+                                 capturable=device == "cuda")
+    local = {n: tuple(p.shape) for n, p in carry["params"].items()
+             if n in ("h0.moe.experts_up", "h0.attn_qkv.weight",
+                      "encoder0.attn_qkv.weight", "head.weight",
+                      "stem.weight")}
+    return dict(mesh=mesh, cfg=cfg, carry=carry, data=data, step=step,
+                local_shapes=local, net=net,
+                backend=torch.distributed.get_backend(),
+                flash_layers=cfg.n_layer if family == "moe_gpt" else 0)
+
+
+def _family_pair_rank(config_json):
+    """One rank of phase 17 (b): each case of `config["cases"]` on its
+    mesh, FAMILY_PAIR_STEPS eager sharded steps; per case the losses,
+    step ms, launches, peak memory and (ResNet) a checksum of every
+    running statistic to `out`."""
+    config = json.loads(config_json)
+    device = config["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{config['store']}",
+        world_size=2, rank=config["rank"])
+    rows = []
+    try:
+        for family, axes in config["cases"]:
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            s = _family_sharded_setup(family, axes, config["seed"], device,
+                                      config["tiny"])
+            carry, losses, ms = s["carry"], [], []
+            # this case's main path: counts at 0 just before, read after
+            flash_attention.launches = 0
+            flash_attention_bwd.launches = 0
+            for _ in range(config["steps"]):
+                t0 = time.perf_counter()
+                carry, loss = s["step"](carry, s["data"])
+                losses.append(float(loss))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            net = s.get("net")
+            stats = None if family != "resnet50" else {
+                n: _checksum(b) for n, b in net.named_buffers()}
+            rows.append(dict(
+                family=family, axes=axes, losses=losses, step_ms=ms,
+                mesh=s["mesh"].shape, local_shapes=s["local_shapes"],
+                backend=s["backend"], stats=stats,
+                flash_layers=(s["flash_layers"] if "flash_layers" in s
+                              else s["cfg"].n_layer),
+                fwd_launches=flash_attention.launches,
+                bwd_launches=flash_attention_bwd.launches,
+                peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                          if device == "cuda" else 0.0)))
+            del s, carry, net
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(f"{config['out']}.{config['rank']}.json", "w") as f:
+        json.dump(rows, f)
+
+
+def family_pairs(refs, seed=5, device="cuda", cases=FAMILY_PAIRS,
+                 steps=FAMILY_PAIR_STEPS, timeout=900, tiny=False):
+    """Phase 17 (b): two processes on the one card, one gloo group, each
+    case of `cases` in turn, eager. `refs[family]` is the unsharded
+    run's losses from the same weights and batch (`train_llama`'s eager
+    losses; phase 17's eager runs of the others): both ranks' losses equal,
+    each within PARALLEL_SPLIT_LOSS_RTOL of the reference at its step;
+    the flash kernels on each rank's heads (n_layer forward launches a
+    step and twice that backward) for Llama and MoE-GPT, none for ViT and
+    ResNet; ResNet's running statistics equal on both ranks. `tiny`
+    runs the tiny configs (a rehearsal on the CPU)."""
+    card = card_line() if device == "cuda" else "cpu"
+    per = 1 if device == "cuda" else 0
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    PARALLEL_DIR.mkdir()
+    out = str(PARALLEL_DIR / "family")
+    t0 = time.perf_counter()
+    _run_ranks("_family_pair_rank", [
+        dict(rank=rank, cases=[list(c) for c in cases], out=out, seed=seed,
+             steps=steps, device=device, tiny=tiny,
+             store=str(PARALLEL_DIR / "store"))
+        for rank in range(2)], timeout)
+    wall_s = time.perf_counter() - t0
+    by_rank = []
+    for rank in range(2):
+        with open(f"{out}.{rank}.json") as f:
+            by_rank.append(json.load(f))
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    _assert_clean()
+    pairs = []
+    for (family, axes), rows in zip(cases, zip(*by_rank)):
+        got = rows[0]["losses"]
+        err = _traj_err(got, refs[family])
+        n_layer = rows[0]["flash_layers"]
+        pair = dict(family=family, axes=axes, losses=got, rel_err=err,
+                    ref=refs[family][:steps],
+                    step_ms=[r["step_ms"] for r in rows],
+                    peak_gib=[r["peak_gib"] for r in rows],
+                    local_shapes=rows[0]["local_shapes"],
+                    fwd_launches=[r["fwd_launches"] for r in rows],
+                    bwd_launches=[r["bwd_launches"] for r in rows])
+        pairs.append(pair)
+        print(f"models (b) {family} {axes}: two ranks on one card over "
+              f"gloo; losses {[round(x, 4) for x in got]} vs unsharded "
+              f"{[round(x, 4) for x in refs[family][:steps]]} (worst rel "
+              f"{err:.2e}, tol {PARALLEL_SPLIT_LOSS_RTOL}); eager step ms "
+              f"by rank {[[round(x, 1) for x in r['step_ms']] for r in rows]}"
+              f"; peak {[round(x, 2) for x in pair['peak_gib']]} GiB; "
+              f"launches fwd {pair['fwd_launches']} bwd "
+              f"{pair['bwd_launches']}; local shapes {pair['local_shapes']}"
+              f" (card: {card})")
+        assert [r["losses"] for r in rows] == [got, got], rows
+        assert all(np.isfinite(got)) and got[-1] < got[0], got
+        assert err <= PARALLEL_SPLIT_LOSS_RTOL, (family, axes, got,
+                                                 refs[family])
+        for r in rows:
+            assert r["backend"] == "gloo" and r["mesh"] == axes, r
+            assert r["fwd_launches"] == n_layer * steps * per, r
+            assert r["bwd_launches"] == \
+                n_layer * steps * BWD_KERNELS_PER_CALL * per, r
+        if family == "resnet50":
+            assert rows[0]["stats"] == rows[1]["stats"], "running stats"
+    print(f"models (b): {len(cases)} cases in {wall_s:.1f} s (two "
+          f"processes' start, gloo group, setups and steps)")
+    return dict(pairs=pairs, wall_s=wall_s)
 
 
 # -- phase 18: rllib -----------------------------------------------------------
@@ -5762,7 +6101,7 @@ BWD_DESIGN = (
 
 def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
                  spec, runtime, serve_row, train_dist, train_data, dag,
-                 cluster, operator, parallel, models, ptxas):
+                 cluster, operator, parallel, models, family, ptxas):
     """The `kernels` entries: every ported kernel with its numbers. The
     forward at the serving path's largest prefill shape (with the GPT-2
     run's launches per prefill bucket at that bucket's time), the
@@ -5782,7 +6121,12 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
     run's ranks on the one card, `parallel_restore` the step after the
     sharded checkpoint's restore; `models` the graphed runs of the model
     families that attend with the kernels, MoE-GPT and BERT, whose shapes
-    are also `training_paths`)."""
+    are also `training_paths`; `parallel_llama` the sharded Llama step's
+    GPU worker, `parallel_dropout` the dropout-0.1 GPT-2 run's graphed
+    steps; `models_pairs` each two-rank run of phase 17 (b), by family
+    and mesh, a list of both ranks' counts, at the rank shapes that are
+    also `training_paths`). Every count is read from the wrappers'
+    counters, none from a profiler trace."""
     def at(table, shape):
         return next(r for r in table if r["shape"] == shape)
 
@@ -5800,7 +6144,17 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
             paths[f"models_{name}"] = dict(
                 at=shape, launches=models[name][key],
                 **_numbers(at(table, shape)))
+        for name, shape in (("llama", RANK_LLAMA_SHAPE),
+                            ("moe_gpt", RANK_MOE_SHAPE)):
+            paths[f"models_pairs_{name}"] = dict(
+                at=shape, launches=pair_launches(key, name),
+                **_numbers(at(table, shape)))
         return paths
+
+    def pair_launches(key, name=None):
+        # phase 17 (b): both ranks' counts of each run
+        return {f"{p['family']} {p['axes']}": p[key]
+                for p in family["pairs"] if name in (None, p["family"])}
 
     def model_launches(key):
         return {f"launches_models_{name}": row[key]
@@ -5846,7 +6200,10 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_parallel_pairs": {
             str(p["axes"]): p["fwd_launches"] for p in parallel["pairs"]},
         "launches_parallel_restore": parallel["checkpoint"]["fwd_launches"],
+        "launches_parallel_llama": parallel["llama"]["fwd_launches"],
+        "launches_parallel_dropout": parallel["dropout"]["fwd_launches"],
         **model_launches("fwd_launches"),
+        "launches_models_pairs": pair_launches("fwd_launches"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **_numbers(main_row),
         "at": MAIN_SHAPE,
@@ -5875,7 +6232,10 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_parallel_pairs": {
             str(p["axes"]): p["bwd_launches"] for p in parallel["pairs"]},
         "launches_parallel_restore": parallel["checkpoint"]["bwd_launches"],
+        "launches_parallel_llama": parallel["llama"]["bwd_launches"],
+        "launches_parallel_dropout": parallel["dropout"]["bwd_launches"],
         **model_launches("bwd_launches"),
+        "launches_models_pairs": pair_launches("bwd_launches"),
         "kernels_per_call": BWD_KERNELS_PER_CALL,
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in bwd_rows),
@@ -5955,15 +6315,28 @@ def main() -> int:
     # parallel/: the `train` cell through a sharded step on a mesh, in a
     # TorchTrainer gang (NCCL), then two ranks on the card over gloo
     parallel = phase_parallel(k1["losses"], (k1["step_ms"], k4["step_ms"]))
+    # ... and `train_llama`'s Llama the same way in a one-rank gang
+    lk1, lk4 = train_llama["graphed"]["k1"], train_llama["graphed"]["k4"]
+    parallel["llama"] = parallel_gang(
+        lk1["losses"], (lk1["step_ms"], lk4["step_ms"]), model="llama_125m",
+        family="llama")
+    # ... and `train`'s GPT-2 at dropout 0.1, graphed against eager
+    parallel["dropout"] = dropout_row(train["losses"])
     # the other model families at their published widths, eager and graphed
     models = phase_models()
+    # ... and sharded over two gloo ranks on the card: Llama, MoE-GPT at
+    # tp=2 and sp=2, ViT-B/16 and ResNet-50 at fsdp=2
+    family = family_pairs(dict(
+        llama=train_llama["losses"],
+        **{name: models[name]["eager_losses"]
+           for name in ("moe_gpt", "vit", "resnet50")}))
     # RLlib: PPO's learner on the card as graphs, env runners as actors
     rllib = phase_rllib()
 
     kernels = kernels_line(rows, bwd_rows, train, train_llama, train_long,
                            gpt, llama, spec, runtime, serve_row, train_dist,
                            train_data, dag, cluster, operator, parallel,
-                           models, ptxas)
+                           models, family, ptxas)
     print(json.dumps({"build_s": build_s, "train": train,
                       "train_llama": train_llama, "train_long": train_long,
                       "engines": [gpt, llama], "engine_spec": spec,
@@ -5971,7 +6344,8 @@ def main() -> int:
                       "train_dist": train_dist, "train_data": train_data,
                       "dag": dag, "soak": soak, "cluster": cluster,
                       "operator": operator, "parallel": parallel,
-                      "models": models, "rllib": rllib}))
+                      "models": models, "models_pairs": family,
+                      "rllib": rllib}))
     print(json.dumps({"kernels": kernels}))
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
           f"{build_s:.1f} s of it")

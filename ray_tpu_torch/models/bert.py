@@ -16,7 +16,7 @@ corruption from a `torch.Generator`; its bits are not `jax.random`'s.
 
 Sharded over a mesh (`sharded_hidden`, `sharded_mlm_loss`), the encoder
 runs `gpt`'s sharded block (data axes, tp, sp) with each block's own
-non-causal attention.
+non-causal attention, and dropout from the global masks.
 """
 
 from __future__ import annotations
@@ -183,31 +183,31 @@ def param_logical_axes(cfg: BertConfig) -> Dict[str, tuple]:
 
 
 def sharded_hidden(model: BertEncoder, tokens, mesh, shardings,
-                   token_types=None):
+                   token_types=None, deterministic: bool = True,
+                   generator: Optional[torch.Generator] = None):
     """The encoder on this rank's token block (`gpt.sharded_hidden`'s
     layout): (hidden [B_l, T_l, D], this rank's wte rows, its `_Spmd`).
-    No dropout."""
+    Dropout as `BertEncoder.forward`, each mask this rank's block of the
+    global one (`gpt.sharded_blocks`)."""
     cfg = model.config
-    if cfg.dropout > 0 and model.training:
-        raise NotImplementedError(
-            "BertEncoder: the sharded forward has no dropout")
     spmd = gpt._Spmd(mesh, shardings, cfg)
     x, wte = gpt.sharded_embed(model, spmd, tokens)
     if token_types is not None:
         x = x + spmd.param("wtt", model.wtt, cfg.dtype)[token_types]
     x = spmd.constrain(x, ("batch", "seq", "embed"))
-    remat = cfg.remat and torch.is_grad_enabled()
-    for i, blk in enumerate(model.blocks()):
-        fn = partial(gpt._sharded_block, blk, spmd, f"h{i}.")
-        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+    x = gpt.sharded_blocks(model, spmd, x, gpt._sharded_block,
+                           deterministic, generator)
     return model.ln_f(x), wte, spmd
 
 
 def sharded_mlm_loss(model: BertEncoder, tokens, mlm_targets, mesh,
-                     shardings, token_types=None, ignore_index: int = -1):
+                     shardings, token_types=None, ignore_index: int = -1,
+                     deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None):
     """This rank's share of the global batch's MLM loss (the mean over
     every masked position of the global batch), as `gpt.sharded_loss`."""
     hidden, wte, spmd = sharded_hidden(model, tokens, mesh, shardings,
-                                       token_types)
+                                       token_types, deterministic,
+                                       generator)
     return gpt.sharded_head_loss(hidden, wte, mlm_targets, spmd,
                                  ignore_index)

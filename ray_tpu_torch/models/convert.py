@@ -28,7 +28,8 @@ values. Norm parameters, which Flax reads in f32, stay in
 `cfg.param_dtype`.
 
 Given a mesh and the parameters' placements (`parallel.sharding.
-param_shardings`), the GPT, MoE-GPT and BERT parameters come back as DTensors on the mesh,
+param_shardings`), the parameters of every family come back as DTensors
+on the mesh (ResNet's running statistics replicated),
 each rank holding its shards: the sharded model's parameters. Their
 layout is the JAX one (the fused qkv's rows are not permuted), so a
 gathered DTensor is the Flax array (transposed for a Dense kernel).
@@ -89,10 +90,13 @@ def gpt_params_from_jax(tree, cfg, device=None,
 
 
 def llama_params_from_jax(tree, cfg, device=None,
-                          dtype: Optional[torch.dtype] = None
-                          ) -> Dict[str, torch.Tensor]:
+                          dtype: Optional[torch.dtype] = None, *, mesh=None,
+                          shardings=None) -> Dict[str, torch.Tensor]:
     """Port params (the `Llama.from_params` dict) from a Flax Llama
-    tree."""
+    tree; DTensors with `mesh`."""
+    if mesh is not None:
+        return _sharded(llama_params_from_jax, tree, cfg, dtype, mesh,
+                        shardings)
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     p = unboxed_params(tree)
@@ -167,9 +171,13 @@ def _conv_kernel(k):
 
 
 def vit_params_from_jax(tree, cfg, device=None,
-                        dtype: Optional[torch.dtype] = None
-                        ) -> Dict[str, torch.Tensor]:
-    """Port params (the `ViT.from_params` dict) from a Flax ViT tree."""
+                        dtype: Optional[torch.dtype] = None, *, mesh=None,
+                        shardings=None) -> Dict[str, torch.Tensor]:
+    """Port params (the `ViT.from_params` dict) from a Flax ViT tree;
+    DTensors with `mesh`."""
+    if mesh is not None:
+        return _sharded(vit_params_from_jax, tree, cfg, dtype, mesh,
+                        shardings)
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     p = unboxed_params(tree)
@@ -191,13 +199,18 @@ def vit_params_from_jax(tree, cfg, device=None,
 
 
 def resnet_variables_from_jax(variables, cfg, device=None,
-                              dtype: Optional[torch.dtype] = None
+                              dtype: Optional[torch.dtype] = None, *,
+                              mesh=None, shardings=None
                               ) -> Dict[str, torch.Tensor]:
     """Port variables (the `ResNet.from_params` dict) from Flax ResNet
     variables {"params": ..., "batch_stats": ...}: conv kernels HWIO ->
     OIHW and the head in `dtype`, BatchNorm scale/bias in
     `cfg.param_dtype`, the running `mean`/`var` in f32. Without
-    "batch_stats" (a gradient tree, say) only the parameters."""
+    "batch_stats" (a gradient tree, say) only the parameters. DTensors
+    with `mesh`."""
+    if mesh is not None:
+        return _sharded(resnet_variables_from_jax, variables, cfg, dtype,
+                        mesh, shardings)
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     params = unboxed_params(variables)

@@ -39,7 +39,8 @@ and row splits over `tp` (`mlp_up`/`mlp_down`, `attn_out`, the fused qkv
 gathered and sliced to this rank's heads, the vocab-parallel embedding
 and loss), and the sequence over `sp` through Ulysses around the
 attention. The attention is the model's `attention_fn` (the flash
-kernel) on this rank's heads.
+kernel) on this rank's heads. Dropout there draws the global mask on
+every rank and keeps the rank's block (`_Spmd.dropout_keep`).
 """
 
 from __future__ import annotations
@@ -55,8 +56,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.parallel import collectives
-from ray_tpu_torch.parallel.compile_cache import graphing as _graphing
-from ray_tpu_torch.parallel.ring_attention import (full_attention,
+from ray_tpu_torch.parallel.ring_attention import (expand_kv_heads,
+                                                   full_attention,
                                                    ulysses_local)
 from ray_tpu_torch.parallel.sharding import (ShardingStrategy,
                                               logical_axis_rules,
@@ -228,10 +229,12 @@ def load_params(net: nn.Module, params: Dict[str, torch.Tensor],
         if set(params) != want:
             raise KeyError(f"from_params: missing {sorted(want - set(params))}"
                            f", unexpected {sorted(set(params) - want)}")
+        buffers = {name for name, _ in net.named_buffers()}
         for name, p in params.items():
             mod, _, leaf = name.rpartition(".")
-            setattr(net.get_submodule(mod), leaf,
-                    nn.Parameter(p.to_local(), requires_grad=False))
+            local = p.to_local()
+            setattr(net.get_submodule(mod), leaf, local if name in buffers
+                    else nn.Parameter(local, requires_grad=False))
     else:
         net.load_state_dict(params, assign=True)
     return net.requires_grad_(trainable).train(trainable)
@@ -245,7 +248,9 @@ class GPT(nn.Module):
     `chunked_cross_entropy`.
 
     Training: `deterministic=False` turns dropout on (`cfg.dropout > 0`),
-    drawing from `generator`. With `cfg.remat` each block is recomputed in
+    drawing from `generator` (inside a `compiled_step` graph too, when the
+    generator is one of the step's arguments: `parallel.compile_cache`
+    registers it). With `cfg.remat` each block is recomputed in
     the backward (`torch.utils.checkpoint`) whenever grad is enabled; its
     dropout mask is drawn before the checkpointed call, so the recompute
     reuses it."""
@@ -276,15 +281,6 @@ class GPT(nn.Module):
         if drop and generator is None:
             raise ValueError("GPT: dropout needs a torch.Generator "
                              "(deterministic=False, dropout > 0)")
-        if drop and tokens.is_cuda and (
-                torch.cuda.is_current_stream_capturing() or _graphing()):
-            # a replay would reuse the capture's masks unless the
-            # generator's state were registered with the graph; raised
-            # before compiled_step's eager first run takes effect
-            raise NotImplementedError(
-                "GPT: dropout inside a captured CUDA graph (a compiled "
-                "train step) is not supported yet; train with dropout=0 "
-                "or deterministic=True, or call the step eagerly")
         remat = cfg.remat and torch.is_grad_enabled() and kv_sink is None
         x = self.wte.to(cfg.dtype)[tokens] + self.wpe.to(cfg.dtype)[None, :t]
         for blk in self.blocks():
@@ -417,33 +413,70 @@ DATA_AXES = ("dcn", "dp", "fsdp", "sp")
 
 class _Spmd:
     """This rank's place in `mesh` for the sharded forward: the groups and
-    offsets of its `tp` and `sp` axes, and each parameter's placements."""
+    offsets of its `tp` and `sp` axes, and each parameter's placements.
 
-    def __init__(self, mesh, shardings, cfg: GPTConfig):
+    Under tp a rank holds `heads` query heads and the `kv_heads` key/value
+    heads they read (grouped-query attention: query head h reads kv head
+    h // (n_head / n_kv_head); a kv head that several ranks' query heads
+    read is held by each of them). `qkv_rows` are the rows of the fused
+    qkv ([n_head + 2 n_kv_head heads, d], the JAX layout) of those heads.
+    Without a `cfg` (a model without heads) only the mesh's part."""
+
+    def __init__(self, mesh, shardings, cfg=None):
         self.mesh, self.shardings = mesh, shardings
         self.tp = mesh.axis_size("tp")
         self.tp_rank = mesh.axis_index("tp")
         self.sp = mesh.axis_size("sp")
         self.sp_rank = mesh.axis_index("sp")
         self.data_axes = tuple(a for a in DATA_AXES if a in mesh.shape)
+        # the axes that split the batch (the others of the data axes, sp,
+        # split the sequence)
+        self.batch_axes = tuple(a for a in self.data_axes if a != "sp")
         size = mesh.shape.get
         self.rules = logical_axis_rules(ShardingStrategy(
             dp=size("dp", 1), fsdp=size("fsdp", 1), tp=self.tp, sp=self.sp,
             pp=size("pp", 1), ep=size("ep", 1), dcn_dp=size("dcn", 1)))
-        if cfg.n_head % self.tp:
-            raise ValueError(f"GPT: {cfg.n_head} heads do not split over "
+        if cfg is None:  # a model without attention heads
+            return
+        n_head = cfg.n_head
+        n_kv = getattr(cfg, "n_kv_head", n_head)
+        name = type(cfg).__name__.replace("Config", "")
+        if n_head % self.tp:
+            raise ValueError(f"{name}: {n_head} heads do not split over "
                              f"tp={self.tp}")
-        self.heads = cfg.n_head // self.tp
+        self.heads = n_head // self.tp
         if self.heads % self.sp:
             raise ValueError(
-                f"GPT: sequence parallelism runs Ulysses over this rank's "
-                f"{self.heads} heads, which sp={self.sp} does not divide")
-        # rows of the fused qkv ([3d, d], the JAX layout) holding this
-        # rank's heads of q, k and v
-        width = self.heads * (cfg.d_model // cfg.n_head)
-        self.qkv_rows = None if self.tp == 1 else torch.cat([
-            torch.arange(width, device=mesh.device_type)
-            + j * cfg.d_model + self.tp_rank * width for j in range(3)])
+                f"{name}: sequence parallelism runs Ulysses over this "
+                f"rank's {self.heads} heads, which sp={self.sp} does not "
+                f"divide")
+        if n_kv % self.tp and self.tp % n_kv:
+            raise ValueError(f"{name}: {n_kv} kv heads and tp={self.tp}: "
+                             f"neither divides the other")
+        group = n_head // n_kv
+        kv_lo = self.tp_rank * self.heads // group
+        self.kv_heads = max(1, self.heads // group)
+        hd = cfg.d_model // n_head
+        self.qkv_rows = None if self.tp == 1 else self.rows(
+            [(self.tp_rank * self.heads * hd, self.heads * hd),
+             ((n_head + kv_lo) * hd, self.kv_heads * hd),
+             ((n_head + n_kv + kv_lo) * hd, self.kv_heads * hd)])
+
+    def rows(self, spans):
+        """The row indices of `spans` [(start, length), ...], in order."""
+        device = self.mesh.device_type
+        return torch.cat([torch.arange(n, device=device) + lo
+                          for lo, n in spans])
+
+    def tp_rows(self, width: int, blocks: int):
+        """The rows of this tp rank's 1/tp of each of `blocks` equal
+        blocks of `width` rows (a fused projection such as `[gate; up]`),
+        or None at tp=1."""
+        if self.tp == 1:
+            return None
+        n = width // self.tp
+        return self.rows([(j * width + self.tp_rank * n, n)
+                          for j in range(blocks)])
 
     def param(self, name, p, dtype, keep=("tp",)):
         """`p` (this rank's shard) in `dtype`, gathered over every mesh axis
@@ -457,6 +490,13 @@ class _Spmd:
                                           mesh=self.mesh)
         return p
 
+    def fused(self, name, p, dtype, rows):
+        """A fused projection's weight (or bias) `p` gathered whole and
+        sliced to `rows` (this rank's part of each block): an even split
+        of its rows would not give a rank its part of every block."""
+        p = self.param(name, p, dtype, keep=())
+        return p if rows is None else p.index_select(0, rows)
+
     def constrain(self, x, logical):
         """`nn.with_logical_constraint`: the identity on a local shard,
         which the forward keeps in the constrained layout."""
@@ -466,13 +506,13 @@ class _Spmd:
     def tp_input(self, x):
         return collectives.replicated_input(x, "tp", mesh=self.mesh)
 
-    def row_linear(self, x, w, b):
+    def row_linear(self, x, w, b=None):
         """A row-parallel Dense: the partial products summed over tp, then
         the bias (one rank's Dense when tp is 1)."""
         if self.tp == 1:
             return F.linear(x, w, b)
-        return collectives.allreduce(F.linear(x, w), "tp",
-                                     mesh=self.mesh) + b
+        y = collectives.allreduce(F.linear(x, w), "tp", mesh=self.mesh)
+        return y if b is None else y + b
 
     def embed(self, wte, tokens):
         """The vocab-parallel lookup: each rank's rows, summed over tp."""
@@ -484,10 +524,37 @@ class _Spmd:
             hit[..., None].to(wte.dtype)
         return collectives.allreduce(x, "tp", mesh=self.mesh)
 
+    def split_qkv(self, qkv, hd):
+        """This rank's fused q/k/v columns as q [B, T, heads, hd] and k, v
+        [B, T, kv_heads, hd]."""
+        b, t = qkv.shape[0], qkv.shape[1]
+        q, k, v = qkv.split([self.heads * hd, self.kv_heads * hd,
+                             self.kv_heads * hd], dim=-1)
+        return tuple(self.constrain(y.reshape(b, t, -1, hd),
+                                    ("batch", "seq", "heads", None))
+                     for y in (q, k, v))
+
     def attend(self, fn, q, k, v):
         if self.sp == 1:
             return fn(q, k, v)
+        if k.shape[2] % self.sp:
+            # Ulysses splits the kv heads over sp: where sp does not
+            # divide them, each query head's kv head is repeated first
+            k, v = expand_kv_heads(q, k, v)
         return ulysses_local(q, k, v, mesh=self.mesh, attention_fn=fn)
+
+    def dropout_keep(self, shape, rate: float, generator, device):
+        """This rank's block of the dropout mask of the global activation
+        whose local block has `shape` [B_l, T_l, ...]: every rank draws
+        the global mask from the same generator state (as the JAX package
+        draws the global array's bits whatever the mesh), so a sharded
+        step drops what the unsharded one does."""
+        nb = self.mesh.axis_size(self.batch_axes)
+        whole = dropout_keep((shape[0] * nb, shape[1] * self.sp,
+                              *shape[2:]), rate, generator, device)
+        bi = self.mesh.axis_index(self.batch_axes)
+        return whole.narrow(0, bi * shape[0], shape[0]).narrow(
+            1, self.sp_rank * shape[1], shape[1])
 
 
 def _block_param(blk, spmd: _Spmd, prefix: str, name: str, keep=("tp",)):
@@ -504,33 +571,27 @@ def _sharded_attention(blk, spmd: _Spmd, prefix: str, x):
     b, t = x.shape[0], x.shape[1]
     hd = cfg.d_model // cfg.n_head
     param = partial(_block_param, blk, spmd, prefix)
-
-    # the fused qkv, gathered whole and sliced to this rank's heads: an even
-    # split of its 3d rows would not give a rank whole heads of q, k and v
-    w, bias = (param(f"attn_qkv.{n}", keep=())
-               for n in ("weight", "bias"))
-    if spmd.qkv_rows is not None:
-        w = w.index_select(0, spmd.qkv_rows)
-        bias = bias.index_select(0, spmd.qkv_rows)
+    w, bias = (spmd.fused(prefix + f"attn_qkv.{n}",
+                          getattr(blk.attn_qkv, n), cfg.dtype,
+                          spmd.qkv_rows) for n in ("weight", "bias"))
     qkv = F.linear(spmd.tp_input(blk.ln_1(x)), w, bias)
-    q, k, v = (spmd.constrain(y.reshape(b, t, spmd.heads, hd),
-                              ("batch", "seq", "heads", None))
-               for y in qkv.split(spmd.heads * hd, dim=-1))
+    q, k, v = spmd.split_qkv(qkv, hd)
     # the block's own mask: causal in the decoders, not in the encoder
     att = spmd.attend(blk.attend(), q, k, v).reshape(b, t, spmd.heads * hd)
     return x + spmd.row_linear(att, param("attn_out.weight"),
                                param("attn_out.bias"))
 
 
-def _sharded_block(blk: Block, spmd: _Spmd, prefix: str, x):
+def _sharded_block(blk: Block, spmd: _Spmd, prefix: str, x, keep=None):
     param = partial(_block_param, blk, spmd, prefix)
     x = _sharded_attention(blk, spmd, prefix, x)
     h = spmd.tp_input(blk.ln_2(x))
     h = F.gelu(F.linear(h, param("mlp_up.weight"), param("mlp_up.bias")),
                approximate="tanh")
-    x = x + spmd.row_linear(h, param("mlp_down.weight"),
-                            param("mlp_down.bias"))
-    return spmd.constrain(x, ("batch", "seq", "embed"))
+    h = spmd.row_linear(h, param("mlp_down.weight"), param("mlp_down.bias"))
+    if keep is not None:
+        h = dropout(h, blk.config.dropout, keep)
+    return spmd.constrain(x + h, ("batch", "seq", "embed"))
 
 
 def sharded_embed(model, spmd: _Spmd, tokens):
@@ -549,33 +610,57 @@ def sharded_embed(model, spmd: _Spmd, tokens):
     return x, wte
 
 
-def sharded_hidden(model: GPT, tokens, mesh, shardings):
+def sharded_blocks(model, spmd: _Spmd, x, block_fn, deterministic=True,
+                   generator: Optional[torch.Generator] = None):
+    """`block_fn(blk, spmd, prefix, x, keep)` over the model's blocks (the
+    prefix `h{i}.`, or the name `blocks()` gives), each recomputed in the
+    backward under `cfg.remat`. With dropout on (`deterministic=False`,
+    `cfg.dropout > 0`) each block's mask is this rank's block of the global
+    mask, drawn before the block as the unsharded forward draws it."""
+    cfg = model.config
+    drop = getattr(cfg, "dropout", 0.0) > 0 and not deterministic
+    if drop and generator is None:
+        raise ValueError(f"{type(model).__name__}: dropout needs a "
+                         f"torch.Generator (deterministic=False, "
+                         f"dropout > 0)")
+    remat = cfg.remat and torch.is_grad_enabled()
+    names = dict((id(m), n) for n, m in model.named_children())
+    for blk in model.blocks():
+        keep = spmd.dropout_keep(x.shape, cfg.dropout, generator, x.device) \
+            if drop else None
+        fn = partial(block_fn, blk, spmd, names[id(blk)] + ".")
+        x = checkpoint(fn, x, keep, use_reentrant=False) if remat \
+            else fn(x, keep)
+    return x
+
+
+def sharded_hidden(model: GPT, tokens, mesh, shardings,
+                   deterministic: bool = True,
+                   generator: Optional[torch.Generator] = None):
     """The sharded forward up to `ln_f` on this rank's token block
     [B / data ranks, T / sp] (module docstring): (hidden [B_l, T_l, D],
     this rank's wte rows, the head's weight, and this rank's `_Spmd`).
-    No dropout."""
+    Dropout as `GPT.forward` (`sharded_blocks`)."""
     cfg = model.config
-    if cfg.dropout > 0 and model.training:
-        raise NotImplementedError("GPT: the sharded forward has no dropout")
     spmd = _Spmd(mesh, shardings, cfg)
     x, wte = sharded_embed(model, spmd, tokens)
     x = spmd.constrain(x, ("batch", "seq", "embed"))
-    remat = cfg.remat and torch.is_grad_enabled()
-    for i, blk in enumerate(model.blocks()):
-        fn = partial(_sharded_block, blk, spmd, f"h{i}.")
-        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+    x = sharded_blocks(model, spmd, x, _sharded_block, deterministic,
+                       generator)
     return model.ln_f(x), wte, spmd
 
 
 def sharded_loss(model: GPT, tokens, targets, mesh, shardings,
-                 ignore_index: int = -1):
+                 ignore_index: int = -1, deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None):
     """This rank's share of the mean token NLL of the global batch under
     `mesh` (the JAX sharded step's loss is the sum of the shares over the
     data axes: `global_loss`), through the fused LM-head loss, vocab-
     parallel over tp. `tokens`/`targets` are this rank's blocks;
     `shardings` the parameters' placements (`param_shardings`). After
     `backward`, `reduce_gradients` completes the gradients."""
-    hidden, wte, spmd = sharded_hidden(model, tokens, mesh, shardings)
+    hidden, wte, spmd = sharded_hidden(model, tokens, mesh, shardings,
+                                       deterministic, generator)
     return sharded_head_loss(hidden, wte, targets, spmd, ignore_index)
 
 
@@ -591,6 +676,31 @@ def sharded_head_loss(hidden, wte, targets, spmd: _Spmd,
         vocab_group=mesh.group("tp"),
         vocab_start=spmd.tp_rank * wte.shape[0],
         count_group=mesh.group(spmd.data_axes))
+
+
+def sharded_class_loss(logits, labels, spmd: _Spmd):
+    """This rank's share of the mean softmax cross-entropy over the global
+    batch (`global_loss` sums the shares): `logits` [B_l, classes / tp]
+    (f32) are this rank's rows and its classes of a vocab-parallel head
+    (`("embed", "vocab")`), whose input the caller marks tp-replicated.
+    The row max and the sum of exponentials are all-reduced over tp, and
+    so is the label's logit (the rank holding its class gives it)."""
+    mesh = spmd.mesh
+    n = logits.shape[0] * mesh.axis_size(spmd.batch_axes)
+    if spmd.tp == 1:
+        return F.cross_entropy(logits, labels, reduction="sum") / n
+    v = logits.shape[-1]
+    with torch.no_grad():
+        m = logits.amax(dim=-1)
+        torch.distributed.all_reduce(m, torch.distributed.ReduceOp.MAX,
+                                     group=mesh.group("tp"))
+    total = collectives.allreduce(torch.exp(logits - m[:, None]).sum(-1),
+                                  "tp", mesh=mesh)
+    local = labels - spmd.tp_rank * v
+    hit = (local >= 0) & (local < v)
+    label = torch.gather(logits, 1, torch.clamp(local, 0, v - 1)[:, None])
+    label = collectives.allreduce(label[:, 0] * hit, "tp", mesh=mesh)
+    return (m + torch.log(total) - label).sum() / n
 
 
 def global_loss(loss, mesh):

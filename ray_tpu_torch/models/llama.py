@@ -24,6 +24,15 @@ module; norm scales stay in `cfg.param_dtype`; names come from the Flax
 tree. With `cfg.remat` each block is recomputed in the backward
 (`torch.utils.checkpoint`) whenever grad is enabled, as the Flax model
 wraps it in `nn.remat`.
+
+Sharded over a mesh (`sharded_loss`), the model holds this rank's shards
+(`param_logical_axes`, the Flax annotations) and runs `gpt`'s sharded
+forward (`gpt._Spmd`): FSDP's `embed` shards gathered at use, Megatron
+splits over `tp` (the fused qkv gathered and sliced to this rank's query
+heads and the kv heads they read, `[gate; up]` gathered and sliced to
+this rank's columns of each half), the vocab-parallel embedding and tied
+head, and the sequence over `sp` through Ulysses with RoPE at the rank's
+positions.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models.gpt import (Dense, _from_params, _next_logits,
                                       _norm_params, _normal, unboxed_params)
 from ray_tpu_torch.parallel.ring_attention import NEG_INF, full_attention
@@ -47,7 +57,8 @@ __all__ = [
     "LlamaConfig", "RMSNorm", "rope_tables", "apply_rope", "LlamaBlock",
     "Llama", "init_params", "unboxed_params", "paged_attend",
     "paged_attend_chunk", "chunk_valid_mask", "prefill_step", "chunk_step",
-    "decode_step", "flops_per_token",
+    "decode_step", "flops_per_token", "param_logical_axes",
+    "sharded_hidden", "sharded_loss",
 ]
 
 
@@ -270,6 +281,73 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     p.update(_norm_params("final_norm", d, cfg.param_dtype, device,
                           bias=False))
     return p
+
+
+def param_logical_axes(cfg: LlamaConfig) -> Dict[str, tuple]:
+    """Each parameter's logical axes in the torch tensor's dimension order
+    (`gpt.param_logical_axes`): the Flax model's Dense kernels reversed,
+    `wte` ("vocab", "embed"), the RMSNorm scales ("norm",)."""
+    axes = {"wte": ("vocab", "embed"), "final_norm.scale": ("norm",)}
+    for i in range(cfg.n_layer):
+        for name, kernel in (("attn_qkv", ("embed", "qkv")),
+                             ("attn_out", ("heads", "embed")),
+                             ("mlp_gate_up", ("embed", "mlp")),
+                             ("mlp_down", ("mlp", "embed"))):
+            axes[f"layer{i}.{name}.weight"] = kernel[::-1]
+        for name in ("attn_norm", "mlp_norm"):
+            axes[f"layer{i}.{name}.scale"] = ("norm",)
+    return axes
+
+
+def _sharded_block(blk: LlamaBlock, spmd, prefix: str, x, keep=None, *,
+                   cos, sin):
+    """The block on this rank's token block, heads and SwiGLU columns
+    (module docstring); `cos`/`sin` are the rows of the rank's positions.
+    Llama has no dropout (`keep` is None)."""
+    cfg = blk.config
+    b, t, hd = x.shape[0], x.shape[1], cfg.head_dim
+    param = partial(gpt._block_param, blk, spmd, prefix)
+    w = spmd.fused(prefix + "attn_qkv.weight", blk.attn_qkv.weight,
+                   cfg.dtype, spmd.qkv_rows)
+    q, k, v = spmd.split_qkv(F.linear(spmd.tp_input(blk.attn_norm(x)), w),
+                             hd)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    attend = blk.attention_fn or partial(full_attention, causal=True)
+    att = spmd.attend(attend, q, k, v).reshape(b, t, spmd.heads * hd)
+    x = x + spmd.row_linear(att, param("attn_out.weight"))
+    w = spmd.fused(prefix + "mlp_gate_up.weight", blk.mlp_gate_up.weight,
+                   cfg.dtype, spmd.tp_rows(cfg.ffn_dim, 2))
+    gate, up = F.linear(spmd.tp_input(blk.mlp_norm(x)), w).chunk(2, dim=-1)
+    x = x + spmd.row_linear(F.silu(gate) * up, param("mlp_down.weight"))
+    return spmd.constrain(x, ("batch", "seq", "embed"))
+
+
+def sharded_hidden(model: Llama, tokens, mesh, shardings):
+    """The sharded forward up to `final_norm` on this rank's token block
+    [B / data ranks, T / sp] (`gpt.sharded_hidden`'s layout): (hidden
+    [B_l, T_l, D], this rank's wte rows, its `gpt._Spmd`)."""
+    cfg = model.config
+    spmd = gpt._Spmd(mesh, shardings, cfg)
+    # the tied head takes wte as it is stored (`gpt.sharded_embed`)
+    wte = spmd.param("wte", model.wte, model.wte.dtype)
+    x = spmd.constrain(spmd.embed(wte.to(cfg.dtype), tokens),
+                       ("batch", "seq", "embed"))
+    # the sequence block's positions are its global ones
+    t = tokens.shape[1]
+    off = spmd.sp_rank * t
+    cos, sin = (tab[off:off + t] for tab in model.rope_tables(tokens.device))
+    x = gpt.sharded_blocks(model, spmd, x,
+                           partial(_sharded_block, cos=cos, sin=sin))
+    return model.final_norm(x), wte, spmd
+
+
+def sharded_loss(model: Llama, tokens, targets, mesh, shardings,
+                 ignore_index: int = -1):
+    """This rank's share of the global batch's mean token NLL
+    (`gpt.sharded_loss`: `gpt.global_loss` sums the shares,
+    `gpt.reduce_gradients` completes the gradients)."""
+    hidden, wte, spmd = sharded_hidden(model, tokens, mesh, shardings)
+    return gpt.sharded_head_loss(hidden, wte, targets, spmd, ignore_index)
 
 
 # -- decode path (serve.llm) ----------------------------------------------

@@ -26,13 +26,18 @@ JAX layouts (`h{i}.moe.router` [d, E], `h{i}.moe.experts_up` [E, d, 4d],
 `h{i}.moe.experts_down` [E, 4d, d]); the router, which Flax reads in f32,
 stays in `cfg.param_dtype` like the norms.
 
-Sharded (`sharded_loss`) over data axes and `ep`: the expert leaves are
-split over `ep` by their "expert" axis (`param_logical_axes`). The JAX
-model is GSPMD-global, so the routing is the global one: each token's
-slot counts the same-expert tokens of the earlier data ranks, and C comes
-from the global token count; each rank builds its slots of the [E, C, d]
-buffers of its `ep` rank's experts, the buffers are summed over the data
-axes, the experts run, and their outputs are gathered over `ep`.
+Sharded (`sharded_loss`) over data axes, `ep`, `tp` and `sp`: the expert
+leaves are split over `ep` by their "expert" axis and over `tp` by their
+"mlp" axis (`param_logical_axes`). The JAX model is GSPMD-global, so the
+routing is the global one: C comes from the global token count, and a
+token's slot counts the same-expert tokens before it in the global (b, t)
+order, those of the earlier rows and, under sp, of the earlier sequence
+blocks of its own row (`_row_offsets`). Each rank builds its slots of the
+[E, C, d] buffers of its `ep` rank's experts, the buffers are summed over
+the data axes, the experts run as a Megatron pair each (their partial
+outputs summed over `tp`), and their outputs are gathered over `ep`. The
+attention is `gpt`'s sharded one (tp heads, Ulysses over sp); the router
+stays whole and in f32.
 """
 
 from __future__ import annotations
@@ -86,12 +91,17 @@ def top1(flat, router, num_experts: int):
 
 def slots(onehot, gate, cap: int, dtype, offset=None):
     """(dispatch [T, E, C], combine [T, E, C]) in `dtype`: a token's slot
-    is its rank among its expert's tokens in token order, plus
-    `offset[e]` (the same-expert tokens before this block); tokens past
-    `cap` get none."""
-    position = torch.cumsum(onehot, dim=0) * onehot - 1
-    if offset is not None:
-        position = position + offset[None, :] * onehot
+    is its rank among its expert's tokens in token order; tokens past
+    `cap` get none. With `offset` [R, E] the tokens are R rows of equal
+    length, and a token's rank counts within its row from `offset[row,
+    e]` (the same-expert tokens before the row's first one)."""
+    if offset is None:
+        position = torch.cumsum(onehot, dim=0) * onehot - 1
+    else:
+        rows, e = offset.shape
+        oh = onehot.reshape(rows, -1, e)
+        position = ((torch.cumsum(oh, dim=1) + offset[:, None]) * oh
+                    - 1).reshape(-1, e)
     keep = (position >= 0) & (position < cap)
     pos_c = torch.clamp(position, 0, cap - 1)
     ids = torch.arange(cap, device=onehot.device)
@@ -263,6 +273,23 @@ def _gather_experts(h, mesh):
     return torch.cat([whole[:j * e_l], h, whole[(j + 1) * e_l:]])
 
 
+def _row_offsets(onehot, spmd):
+    """[B_l, E]: for each row of this rank's token block (onehot [B_l,
+    T_l, E]), the tokens of each expert before the block's first token in
+    the global (b, t) order: all tokens of the earlier global rows, and
+    the earlier sp blocks of the same row."""
+    mesh, (b, _, e) = spmd.mesh, onehot.shape
+    nb, bi = mesh.axis_size(spmd.batch_axes), mesh.axis_index(
+        spmd.batch_axes)
+    table = torch.zeros(nb, spmd.sp, b, e, dtype=torch.int32,
+                        device=onehot.device)
+    table[bi, spmd.sp_rank] = onehot.sum(dim=1, dtype=torch.int32)
+    table = collectives.allreduce(table, spmd.data_axes, mesh=mesh)
+    rows = table.sum(dim=1).reshape(nb * b, e)
+    before = torch.cumsum(rows, dim=0) - rows
+    return before[bi * b:(bi + 1) * b] + table[bi, :spmd.sp_rank].sum(dim=0)
+
+
 def _sharded_moe(moe: MoEMLP, spmd, prefix: str, x):
     """The expert layer on this rank's token block under the global
     routing of the JAX model (module docstring): (y, this rank's share of
@@ -271,33 +298,31 @@ def _sharded_moe(moe: MoEMLP, spmd, prefix: str, x):
     cfg, dt, mesh = moe.config, moe.config.dtype, spmd.mesh
     b, t, d = x.shape
     data = spmd.data_axes
-    n_data, e = mesh.axis_size(data), cfg.num_experts
-    tokens = b * t * n_data
+    e = cfg.num_experts
+    tokens = b * t * mesh.axis_size(data)
     cap = capacity(cfg, tokens)
     flat = x.reshape(b * t, d)
     router = spmd.param(prefix + "router", moe.router, moe.router.dtype,
                         keep=())
     probs, gate, onehot = top1(flat, router, e)
     with torch.no_grad():
-        # each data rank's per-expert counts, by its place in the batch
-        here = mesh.axis_index(data)
-        counts = torch.zeros(n_data, e, dtype=torch.int32, device=x.device)
-        counts[here] = onehot.sum(dim=0, dtype=torch.int32)
-        counts = collectives.allreduce(counts, data, mesh=mesh)
-        offset = counts[:here].sum(dim=0, dtype=torch.int32)
+        offset = _row_offsets(onehot.reshape(b, t, e), spmd)
     dispatch, combine = slots(onehot, gate, cap, dt, offset)
-    up = spmd.param(prefix + "experts_up", moe.experts_up, dt, keep=("ep",))
-    down = spmd.param(prefix + "experts_down", moe.experts_down, dt,
-                      keep=("ep",))
+    # this rank's experts (ep), each its columns of the hidden width (tp)
+    up, down = (spmd.param(prefix + n, getattr(moe, n), dt,
+                           keep=("ep", "tp"))
+                for n in ("experts_up", "experts_down"))
     e_l, j = up.shape[0], mesh.axis_index("ep")
     # this rank's slots of its experts' buffers, summed over the data
     # ranks (each slot is one token's, so the sum is exact; its backward
-    # is the identity: a rank's loss reads only its own tokens' slots)
-    x_in = collectives.replicated_input(flat, "ep", mesh=mesh)
+    # is the identity: a rank's loss reads only its own tokens' slots);
+    # the tokens' gradient through them is partial over ep and tp
+    x_in = collectives.replicated_input(flat, ("ep", "tp"), mesh=mesh)
     buf = torch.einsum("td,tec->ecd", x_in, dispatch[:, j * e_l:(j + 1) * e_l])
     buf = collectives.allreduce(buf, data, mesh=mesh)
-    h = _gather_experts(_experts(buf, up, down), mesh)
-    out = torch.einsum("ecd,tec->td", h, combine)
+    # a Megatron pair per expert: the partial outputs summed over tp
+    h = collectives.allreduce(_experts(buf, up, down), "tp", mesh=mesh)
+    out = torch.einsum("ecd,tec->td", _gather_experts(h, mesh), combine)
     with torch.no_grad():
         density = collectives.allreduce(onehot.float().sum(dim=0), data,
                                         mesh=mesh) / tokens
@@ -311,18 +336,13 @@ def _sharded_moe_block(blk: MoEBlock, spmd, prefix: str, x):
     return spmd.constrain(x + y, ("batch", "seq", "embed")), aux
 
 
-def sharded_loss(model: MoEGPT, tokens, targets, mesh, shardings,
-                 ignore_index: int = -1):
-    """This rank's share of the global loss (the mean token NLL plus the
-    layers' router losses) under `mesh`, as `gpt.sharded_loss`:
-    `gpt.global_loss` sums the shares over the data axes and
-    `gpt.reduce_gradients` completes the gradients after `backward`. The
-    mesh may have data axes and `ep` (tp and sp are not supported)."""
+def sharded_hidden(model: MoEGPT, tokens, mesh, shardings):
+    """The sharded forward up to `ln_f` on this rank's token block
+    (`gpt.sharded_hidden`'s layout): (hidden, this rank's wte rows, its
+    `gpt._Spmd`, the layers' shares of their aux losses). The mesh may
+    have data axes, `ep`, `tp` and `sp`."""
     cfg = model.config
     spmd = gpt._Spmd(mesh, shardings, cfg)
-    if spmd.tp > 1 or spmd.sp > 1:
-        raise NotImplementedError(
-            "MoEGPT: the sharded step runs over data axes and ep only")
     if cfg.num_experts % mesh.axis_size("ep"):
         raise ValueError(f"MoEGPT: {cfg.num_experts} experts do not split "
                          f"over ep={mesh.axis_size('ep')}")
@@ -334,6 +354,15 @@ def sharded_loss(model: MoEGPT, tokens, targets, mesh, shardings,
         fn = partial(_sharded_moe_block, blk, spmd, f"h{i}.")
         x, a = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
         aux.append(a)
-    loss = gpt.sharded_head_loss(model.ln_f(x), wte, targets, spmd,
-                                 ignore_index)
+    return model.ln_f(x), wte, spmd, aux
+
+
+def sharded_loss(model: MoEGPT, tokens, targets, mesh, shardings,
+                 ignore_index: int = -1):
+    """This rank's share of the global loss (the mean token NLL plus the
+    layers' router losses) under `mesh`, as `gpt.sharded_loss`:
+    `gpt.global_loss` sums the shares over the data axes and
+    `gpt.reduce_gradients` completes the gradients after `backward`."""
+    hidden, wte, spmd, aux = sharded_hidden(model, tokens, mesh, shardings)
+    loss = gpt.sharded_head_loss(hidden, wte, targets, spmd, ignore_index)
     return loss + total_aux_loss(aux)

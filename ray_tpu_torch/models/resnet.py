@@ -23,12 +23,19 @@ a captured CUDA graph); `forward(images, train=True)` is the JAX
 `apply(..., train=True, mutable=["batch_stats"])`. Parameter names follow
 the Flax tree (`stem.weight`, `stem_bn.scale`,
 `stage{s}_block{b}.conv1.weight`, `head.weight`).
+
+Sharded (`sharded_loss`) over the data axes and fsdp, with tp on the
+head, as GSPMD shards the annotated Flax model (`param_logical_axes`):
+each conv kernel's output channels ("embed") gathered at use, BatchNorm
+normalising by the global batch's statistics (its sums all-reduced over
+the axes that split the batch), the class head vocab-parallel over tp.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -38,6 +45,7 @@ from torch import nn
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models.gpt import Dense
+from ray_tpu_torch.parallel import collectives
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -105,12 +113,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features,
                                                dtype=torch.float32))
 
-    def forward(self, x, train: bool):
+    def forward(self, x, train: bool, spmd=None):
         x = x.float()
         if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp(torch.square(x).mean(dim=(0, 2, 3))
-                              - torch.square(mean), min=0.0)
+            mean, var = _batch_stats(x, spmd)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean
                                 + (1 - BN_MOMENTUM) * mean)
@@ -122,6 +128,26 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + BN_EPS) * self.scale.float()
         return (x - mean.view(shape)) * mul.view(shape) \
             + self.bias.float().view(shape)
+
+
+def _batch_stats(x, spmd=None):
+    """The batch's mean and fast variance over (N, H, W), in f32. Given a
+    sharded forward's `spmd`, those of the global batch: the sums are
+    all-reduced over the axes that split the batch, forward and backward
+    (each rank's loss is its share, and every share reads the global
+    statistics)."""
+    if spmd is None or spmd.mesh.axis_size(spmd.batch_axes) == 1:
+        mean = x.mean(dim=(0, 2, 3))
+        return mean, torch.clamp(torch.square(x).mean(dim=(0, 2, 3))
+                                 - torch.square(mean), min=0.0)
+    axes, mesh = spmd.batch_axes, spmd.mesh
+    n = x.shape[0] * x.shape[2] * x.shape[3] * mesh.axis_size(axes)
+    sums = torch.stack([x.sum(dim=(0, 2, 3)),
+                        torch.square(x).sum(dim=(0, 2, 3))])
+    sums = collectives.allreduce(
+        collectives.replicated_input(sums, axes, mesh=mesh), axes,
+        mesh=mesh) / n
+    return sums[0], torch.clamp(sums[1] - torch.square(sums[0]), min=0.0)
 
 
 class Bottleneck(nn.Module):
@@ -145,14 +171,29 @@ class Bottleneck(nn.Module):
             self.conv_proj = Conv(cin, 4 * features, 1, strides, dt)
             self.bn_proj = BatchNorm(4 * features, pdt)
 
-    def forward(self, x, train: bool):
-        y = F.relu(self.bn1(self.conv1(x), train))
-        y = F.relu(self.bn2(self.conv2(y), train))
-        y = self.bn3(self.conv3(y), train)
+    def forward(self, x, train: bool, spmd=None, prefix: str = ""):
+        """With a sharded forward's `spmd` the kernels are gathered at use
+        (their names under `prefix`) and BatchNorm reads the global
+        batch's statistics."""
+        conv = partial(_conv, self, spmd, prefix)
+        y = F.relu(self.bn1(conv("conv1", x), train, spmd))
+        y = F.relu(self.bn2(conv("conv2", y), train, spmd))
+        y = self.bn3(conv("conv3", y), train, spmd)
         residual = x
         if self.project:
-            residual = self.bn_proj(self.conv_proj(x), train)
+            residual = self.bn_proj(conv("conv_proj", x), train, spmd)
         return F.relu(residual + y)
+
+
+def _conv(parent, spmd, prefix: str, name: str, x):
+    """`parent`'s Conv `name` on x; under a sharded forward its kernel
+    gathered over the axes that split it."""
+    mod = getattr(parent, name)
+    if spmd is None:
+        return mod(x)
+    w = spmd.param(prefix + name + ".weight", mod.weight, mod.dtype)
+    x = _pad_same(x.to(mod.dtype), mod.kernel, mod.stride)
+    return F.conv2d(x, w, stride=mod.stride)
 
 
 class ResNet(nn.Module):
@@ -195,16 +236,23 @@ class ResNet(nn.Module):
                 for b in range(n)]
 
     def forward(self, images, train: bool = True):
+        return self.head(self.features(images, train)).float()
+
+    def features(self, images, train: bool = True, spmd=None):
+        """The pooled features [B, channels] in `cfg.dtype` (under a
+        sharded forward's `spmd`: its kernels gathered at use, BatchNorm on
+        the global batch's statistics)."""
         cfg = self.config
         x = images.to(cfg.dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        x = F.relu(self.stem_bn(self.stem(x), train))
+        x = F.relu(self.stem_bn(_conv(self, spmd, "", "stem", x), train,
+                                spmd))
         if not cfg.small_images:
             x = F.max_pool2d(_pad_same(x, 3, 2, -math.inf), 3, stride=2)
-        for blk in self.blocks():
-            x = blk(x, train)
-        x = x.mean(dim=(2, 3))
-        return self.head(x.to(cfg.dtype)).float()
+        for name, blk in self.named_children():
+            if name.startswith("stage"):
+                x = blk(x, train, spmd, name + ".")
+        return x.mean(dim=(2, 3)).to(cfg.dtype)
 
 
 def init_variables(cfg: ResNetConfig, generator: torch.Generator,
@@ -235,3 +283,45 @@ def init_variables(cfg: ResNetConfig, generator: torch.Generator,
         else:  # BatchNorm bias and mean
             out[name] = torch.zeros(shape, dtype=meta.dtype, device=device)
     return out
+
+
+def param_logical_axes(cfg: ResNetConfig, channels: int = 3
+                       ) -> Dict[str, tuple]:
+    """Each parameter's (and running statistic's) logical axes in the torch
+    tensor's dimension order: the conv kernels' output channels "embed"
+    (the Flax HWIO kernel's last axis), BatchNorm's scale and bias
+    ("norm",), its running statistics unannotated, the head ("embed",
+    "vocab") reversed."""
+    with torch.device("meta"):
+        shapes = ResNet(cfg, channels).state_dict()
+    axes = {}
+    for name, meta in shapes.items():
+        if name == "head.weight":
+            axes[name] = ("vocab", "embed")
+        elif name == "head.bias":
+            axes[name] = ("vocab",)
+        elif meta.dim() == 4:
+            axes[name] = ("embed", None, None, None)
+        elif name.endswith((".scale", ".bias")):
+            axes[name] = ("norm",)
+        else:  # the running mean and var (the Flax batch_stats)
+            axes[name] = (None,)
+    return axes
+
+
+def sharded_loss(model: ResNet, images, labels, mesh, shardings,
+                 train: bool = True):
+    """This rank's share of the global batch's mean softmax cross-entropy
+    on its images [B / data ranks, H, W, C] (`gpt.global_loss` sums the
+    shares, `gpt.reduce_gradients` completes the gradients): the conv
+    kernels' `embed` shards gathered at use, BatchNorm on the global
+    batch's statistics (so the running statistics are the same on every
+    rank), the head vocab-parallel over tp (`gpt.sharded_class_loss`)."""
+    cfg = model.config
+    spmd = gpt._Spmd(mesh, shardings)
+    x = spmd.tp_input(model.features(images, train, spmd))
+    logits = F.linear(x, spmd.param("head.weight", model.head.weight,
+                                    cfg.dtype),
+                      spmd.param("head.bias", model.head.bias, cfg.dtype))
+    return gpt.sharded_class_loss(logits.float(), labels, spmd)
+

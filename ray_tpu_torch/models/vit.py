@@ -14,12 +14,17 @@ Flax HWIO kernel), and the patches flatten row-major over (H', W'), as
 the JAX reshape does. Parameter names follow the Flax tree
 (`encoder{i}.attn_qkv.weight`, `patchify.weight`, `cls`, `pos_embed`,
 `head.weight`).
+
+Sharded (`sharded_loss`) over the data axes, fsdp and tp, as GSPMD shards
+the annotated Flax model (`param_logical_axes`): the blocks as the
+decoders' (`gpt`'s sharded block), the class head vocab-parallel over tp.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Dict, Optional
 
 import torch
@@ -76,19 +81,27 @@ class EncoderBlock(nn.Module):
         self.mlp_up = Dense(d, cfg.mlp_mult * d, cfg.dtype)
         self.mlp_down = Dense(cfg.mlp_mult * d, d, cfg.dtype)
 
+    def attend(self):
+        """The block's attention on [B, T, H, hd] q/k/v (any H): the JAX
+        model's einsums."""
+        return self._attention
+
+    def _attention(self, q, k, v):
+        cfg = self.config
+        # sqrt(hd) rounded to the activation dtype, as the JAX model takes
+        # it; a host number, so that a captured step copies nothing
+        scale = float(torch.sqrt(torch.tensor(q.shape[-1], dtype=cfg.dtype)))
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / scale
+        probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
     def forward(self, x, keep=None):
         cfg = self.config
         b, t = x.shape[0], x.shape[1]
         hd = cfg.d_model // cfg.n_head
         q, k, v = (y.reshape(b, t, cfg.n_head, hd) for y in
                    self.attn_qkv(self.ln_1(x)).split(cfg.d_model, dim=-1))
-        # sqrt(hd) rounded to the activation dtype, as the JAX model takes
-        # it; a host number, so that a captured step copies nothing
-        scale = float(torch.sqrt(torch.tensor(hd, dtype=cfg.dtype)))
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / scale
-        probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
-        att = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(
-            b, t, cfg.d_model)
+        att = self._attention(q, k, v).reshape(b, t, cfg.d_model)
         x = x + self.attn_out(att)
         h = F.gelu(self.mlp_up(self.ln_2(x)), approximate="tanh")
         h = self.mlp_down(h)
@@ -132,18 +145,13 @@ class ViT(nn.Module):
 
     def forward(self, images, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-        cfg, dt = self.config, self.config.dtype
+        cfg = self.config
         drop = cfg.dropout > 0 and not deterministic
         if drop and generator is None:
             raise ValueError("ViT: dropout needs a torch.Generator "
                              "(deterministic=False, dropout > 0)")
-        x = F.conv2d(images.to(dt).permute(0, 3, 1, 2),
-                     self.patchify.weight.to(dt), self.patchify.bias.to(dt),
-                     stride=cfg.patch_size)
-        b = x.shape[0]
-        x = x.permute(0, 2, 3, 1).reshape(b, -1, cfg.d_model)
-        x = torch.cat([self.cls.to(dt).expand(b, 1, cfg.d_model), x], dim=1)
-        x = x + self.pos_embed.to(dt)[None]
+        x = _embed(cfg, images, self.patchify.weight, self.patchify.bias,
+                   self.cls, self.pos_embed)
         remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks():
             keep = gpt.dropout_keep(x.shape, cfg.dropout, generator,
@@ -152,6 +160,18 @@ class ViT(nn.Module):
                 else blk(x, keep)
         x = self.ln_f(x)
         return self.head(x[:, 0]).float()
+
+
+def _embed(cfg: ViTConfig, images, w, b, cls, pos):
+    """Patchify, the cls token first, the position embeddings: [B, 1 +
+    patches, D] in `cfg.dtype`."""
+    dt = cfg.dtype
+    x = F.conv2d(images.to(dt).permute(0, 3, 1, 2), w.to(dt), b.to(dt),
+                 stride=cfg.patch_size)
+    n = x.shape[0]
+    x = x.permute(0, 2, 3, 1).reshape(n, -1, cfg.d_model)
+    x = torch.cat([cls.to(dt).expand(n, 1, cfg.d_model), x], dim=1)
+    return x + pos.to(dt)[None]
 
 
 def _xavier_uniform(shape, fan_in, fan_out, generator, device, dtype):
@@ -194,3 +214,64 @@ def init_params(cfg: ViTConfig, generator: torch.Generator, device=None,
     out.update(gpt._norm_params("ln_f", d, cfg.param_dtype, device))
     dense("head", d, cfg.num_classes)
     return out
+
+
+def param_logical_axes(cfg: ViTConfig) -> Dict[str, tuple]:
+    """Each parameter's logical axes in the torch tensor's dimension order
+    (`gpt.param_logical_axes`): the encoder blocks' as GPT's, the patchify
+    kernel's output channels "embed" (its bias unannotated), `cls` and
+    `pos_embed` (None, "embed"), the head ("embed", "vocab") reversed."""
+    axes = {"patchify.weight": ("embed", None, None, None),
+            "patchify.bias": (None,), "cls": (None, "embed"),
+            "pos_embed": (None, "embed"), "ln_f.scale": ("norm",),
+            "ln_f.bias": ("norm",), "head.weight": ("vocab", "embed"),
+            "head.bias": ("vocab",)}
+    for name, a in gpt.param_logical_axes(
+            gpt.GPTConfig(n_layer=cfg.n_layer)).items():
+        if name.startswith("h"):
+            axes["encoder" + name[1:]] = a
+    return axes
+
+
+def sharded_hidden(model: ViT, images, mesh, shardings,
+                   deterministic: bool = True,
+                   generator: Optional[torch.Generator] = None):
+    """The sharded forward up to `ln_f` on this rank's images [B / data
+    ranks, H, W, C]: (hidden [B_l, 1 + patches, D], its `gpt._Spmd`).
+    Over the data axes, fsdp (the `embed` shards gathered at use) and tp
+    (`gpt`'s sharded block on this rank's heads, with the JAX model's
+    plain attention); dropout from the global masks. ViT-B/16's 197 tokens
+    split over no sp > 1 (GSPMD pads them; the port does not), so a mesh
+    with sp raises."""
+    cfg = model.config
+    spmd = gpt._Spmd(mesh, shardings, cfg)
+    if spmd.sp > 1:
+        raise ValueError(f"ViT: {cfg.num_patches + 1} tokens do not split "
+                         f"over sp={spmd.sp}; shard ViT over data axes, "
+                         f"fsdp and tp")
+    param = partial(spmd.param, dtype=cfg.dtype)
+    x = _embed(cfg, images,
+               *(param(n, p) for n, p in (
+                   ("patchify.weight", model.patchify.weight),
+                   ("patchify.bias", model.patchify.bias),
+                   ("cls", model.cls), ("pos_embed", model.pos_embed))))
+    x = spmd.constrain(x, ("batch", "seq", "embed"))
+    x = gpt.sharded_blocks(model, spmd, x, gpt._sharded_block, deterministic,
+                           generator)
+    return model.ln_f(x), spmd
+
+
+def sharded_loss(model: ViT, images, labels, mesh, shardings,
+                 deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None):
+    """This rank's share of the global batch's mean softmax cross-entropy
+    of the class logits (`gpt.global_loss` sums the shares,
+    `gpt.reduce_gradients` completes the gradients): the head is
+    vocab-parallel over tp (`gpt.sharded_class_loss`)."""
+    hidden, spmd = sharded_hidden(model, images, mesh, shardings,
+                                  deterministic, generator)
+    dt = model.config.dtype
+    logits = F.linear(spmd.tp_input(hidden[:, 0]),
+                      spmd.param("head.weight", model.head.weight, dt),
+                      spmd.param("head.bias", model.head.bias, dt))
+    return gpt.sharded_class_loss(logits.float(), labels, spmd)

@@ -35,9 +35,15 @@ autograd mode (grad enabled, inference mode), and holds per key:
   sync such as ``.item()`` inside the function, a data-dependent shape)
   raises, and since the eager run before it was the call and took
   effect, the error says so and carries that run's result as
-  ``.result``; a retry runs eagerly once more and raises again. What a
-  model knows a graph cannot replay (dropout masks) it rejects before
-  the eager run, while `graphing()` is true.
+  ``.result``; a retry runs eagerly once more and raises again.
+  Random draws inside the step (dropout masks) come from generators: a
+  ``torch.Generator`` among the arguments (keyed by identity) is
+  registered with the graph, so that each replay draws from the
+  generator's state at the replay and advances it as the eager call
+  does: replay n draws what eager call n+1 would, and two replays draw
+  different masks. A CPU generator, or a CUDA generator that is no
+  argument, fails the capture (PyTorch refuses a draw from a generator
+  the graph does not know); nothing falls back to eager.
 * on the CPU, the eager function itself: the keys, counters and retrace
   rule are the same, so CPU runs exercise the whole cache logic.
 
@@ -318,15 +324,24 @@ class _EagerEntry:
         return self.fn(*args, **kwargs)
 
 
-_GRAPHING = threading.local()
-
-
-def graphing() -> bool:
-    """True on this thread while compiled_step runs a function that it
-    captures on the card (the eager first run and the capture): a model
-    rejects what a replay could not reproduce before the eager run takes
-    effect."""
-    return getattr(_GRAPHING, "on", False)
+def _generators(leaves: list, device: torch.device) -> list:
+    """The `torch.Generator` leaves of a call captured on `device`: each
+    is registered with the graph. One that cannot be (on another device,
+    or a torch without graph-safe generators) raises before the eager
+    run: a replay would otherwise draw what the capture drew."""
+    gens = [x for x in leaves if isinstance(x, torch.Generator)]
+    for gen in gens:
+        if gen.device.type != "cuda" or (
+                gen.device.index not in (None, device.index)):
+            raise ValueError(
+                f"compiled_step: a generator on {gen.device} cannot draw "
+                f"inside a CUDA graph on {device}; pass a "
+                f"torch.Generator(device={str(device)!r})")
+    if gens and not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        raise NotImplementedError(
+            f"compiled_step: this torch ({torch.__version__}) cannot "
+            f"register a generator with a CUDA graph")
+    return gens
 
 
 def _launch_counters():
@@ -357,6 +372,7 @@ class _GraphEntry:
                     f"must be a tensor on {device}, got "
                     f"{type(x).__name__} {getattr(x, 'device', '')}")
             self.live[k] = x.data_ptr()
+        self.generators = _generators(leaves, device)
         self.static = list(leaves)
         self.staging: Dict[int, torch.Tensor] = {}
         self.copied: List[int] = []
@@ -378,20 +394,19 @@ class _GraphEntry:
             donated = [(_flatten(args[i], []), _leaves_of(args[i]))
                        for i in sorted(set(donate_argnums))
                        if i < len(args) and i not in dict(statics)]
-            _GRAPHING.on = True
-            try:
-                # the call itself; its first-use costs stay outside the
-                # capture
-                self.first_out = _return_donated(fn(*args, **kwargs),
-                                                 donated)
-                self._capture(fn, args, kwargs, donated, pool)
-            finally:
-                _GRAPHING.on = False
+            # the call itself; its first-use costs stay outside the
+            # capture
+            self.first_out = _return_donated(fn(*args, **kwargs), donated)
+            self._capture(fn, args, kwargs, donated, pool)
 
     def _capture(self, fn, args, kwargs, donated, pool) -> None:
         counters = _launch_counters()
         before = [c.launches for c in counters]
         self.graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            # a replay then draws from the generator's state at the replay
+            # and advances it as the eager call does
+            self.graph.register_generator_state(gen)
         try:
             # thread_local: a sync or allocation that may not be captured
             # fails THIS capture; other threads' CUDA work stays legal

@@ -18,6 +18,7 @@ imports JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -631,6 +632,343 @@ def sc_ckpt_restore(inputs):
     return out
 
 
+# -- Llama, MoE-GPT over tp/sp, dropout, ViT and ResNet sharded
+# (test_torch_llama_sharded, test_torch_zoo_sharded_more)
+
+
+def _gather_blocks(x, mesh, seq: bool = True):
+    """The global [B, T, ...] (or [B, ...] with `seq=False`) value of a
+    tensor every rank holds its block of: the blocks placed by each rank's
+    batch index (over dcn, dp, fsdp) and sp index."""
+    import torch
+    import torch.distributed as dist
+
+    x = x.detach().float().contiguous()
+    batch = tuple(a for a in ("dcn", "dp", "fsdp") if a in mesh.shape)
+    coords = [None] * dist.get_world_size()
+    dist.all_gather_object(coords, (mesh.axis_index(batch),
+                                    mesh.axis_index("sp") if seq else 0))
+    parts = [torch.empty_like(x) for _ in coords]
+    dist.all_gather(parts, x)
+    grid = {c: part for c, part in zip(coords, parts)}
+    nb, ns = mesh.axis_size(batch), mesh.axis_size("sp") if seq else 1
+    return torch.cat([torch.cat([grid[(i, j)] for j in range(ns)], dim=1)
+                      for i in range(nb)]).numpy()
+
+
+def _adamw(params, lr):
+    import torch
+
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def _sharded_steps(loss_fn, params, mesh, shardings, lr, steps=2):
+    """`steps` AdamW steps of `loss_fn()` (this rank's share): the global
+    losses."""
+    from ray_tpu_torch.models import gpt
+
+    opt = _adamw(params.values(), lr)
+    losses = []
+    for _ in range(steps):
+        loss = loss_fn()
+        loss.backward()
+        gpt.reduce_gradients(params, mesh, shardings)
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(gpt.global_loss(loss, mesh)))
+    return losses
+
+
+def _placed(family, convert_fn, tree, cfg, axes):
+    """(mesh, shardings, placed params) of `family` (a model module) at the
+    strategy `axes`, the JAX tree carried across in f32."""
+    import torch
+
+    from ray_tpu_torch.parallel import ShardingStrategy, logical_axis_rules
+    from ray_tpu_torch.parallel.sharding import param_shardings
+
+    strategy = ShardingStrategy(**axes)
+    mesh = strategy.build_mesh(device="cpu")
+    shardings = param_shardings(mesh, family.param_logical_axes(cfg),
+                                logical_axis_rules(strategy))
+    placed = convert_fn(tree, cfg, dtype=torch.float32, mesh=mesh,
+                        shardings=shardings)
+    return strategy, mesh, shardings, placed
+
+
+LLAMA_LR = 1e-3
+# Llama tiny (4 q heads, 2 kv heads) at the strategies of the tests: the
+# axes of test_models.py's GSPMD step on 4 devices, tp with sp (Ulysses
+# over each tp rank's 2 q heads and its 1 kv head, repeated), and tp=4
+# (each kv head read by two ranks' query heads)
+LLAMA_STRATEGIES = {"fsdp2_tp2": dict(fsdp=2, tp=2),
+                    "tp2_sp2": dict(tp=2, sp=2), "tp4": dict(tp=4)}
+
+
+def llama_tokens():
+    return np.random.default_rng(13).integers(0, 512, (8, 33)).astype(
+        np.int32)
+
+
+def sc_llama_sharded(inputs):
+    """The tiny Llama at each of `LLAMA_STRATEGIES`: the gathered sharded
+    hidden states and the unsharded port's, then two AdamW steps' global
+    losses."""
+    import torch
+
+    from ray_tpu_torch.models import convert, llama
+    from ray_tpu_torch.ops import flash_attention
+    from ray_tpu_torch.parallel import shard_batch
+
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32, remat=False)
+    tree = inputs["llama_tree"]
+    toks = llama_tokens()
+    plain = llama.Llama.from_params(cfg, convert.llama_params_from_jax(
+        tree, cfg, device="cpu", dtype=torch.float32))
+    with torch.no_grad():
+        ref, _ = plain(torch.from_numpy(toks[:, :-1]).long(),
+                       return_hidden=True)
+    out = {"plain": ref.numpy()}
+    attend = partial(flash_attention, causal=True)
+    for name, axes in LLAMA_STRATEGIES.items():
+        strategy, mesh, shardings, placed = _placed(
+            llama, convert.llama_params_from_jax, tree, cfg, axes)
+        model = llama.Llama.from_params(cfg, placed, attention_fn=attend,
+                                        trainable=True)
+        batch = shard_batch({"x": toks[:, :-1], "y": toks[:, 1:]}, mesh,
+                            strategy)
+        x, y = (batch[k].to_local().long() for k in ("x", "y"))
+        with torch.no_grad():
+            hidden, wte, spmd = llama.sharded_hidden(model, x, mesh,
+                                                     shardings)
+        params = dict(model.named_parameters())
+        losses = _sharded_steps(
+            lambda: llama.sharded_loss(model, x, y, mesh, shardings),
+            params, mesh, shardings, LLAMA_LR)
+        out[name] = {"hidden": _gather_blocks(hidden, mesh),
+                     "losses": losses, "mesh": mesh.shape,
+                     "heads": (spmd.heads, spmd.kv_heads),
+                     "local_qkv": tuple(params["layer0.attn_qkv.weight"]
+                                        .shape),
+                     "local_wte": tuple(params["wte"].shape)}
+    return out
+
+
+MOE_STRATEGIES = {"tp2_ep2": dict(tp=2, ep=2), "dp2_sp2": dict(dp=2, sp=2)}
+
+
+def moe_sp_tokens():
+    return np.random.default_rng(17).integers(0, 512, (8, 33)).astype(
+        np.int32)
+
+
+def sc_moe_tp_sp(inputs):
+    """The tiny MoE-GPT at each of `MOE_STRATEGIES`: the layers' aux loss
+    summed over the data axes before any step, then two AdamW steps'
+    global losses."""
+    import torch
+
+    from ray_tpu_torch.models import convert, gpt, moe_gpt
+    from ray_tpu_torch.parallel import collectives, shard_batch
+
+    cfg = moe_gpt.MoEGPTConfig.tiny(dtype=torch.float32, remat=False)
+    toks = moe_sp_tokens()
+    out = {}
+    for name, axes in MOE_STRATEGIES.items():
+        strategy, mesh, shardings, placed = _placed(
+            moe_gpt, convert.moe_gpt_params_from_jax, inputs["moe_tree"],
+            cfg, axes)
+        model = moe_gpt.MoEGPT.from_params(cfg, placed, trainable=True)
+        batch = shard_batch({"x": toks[:, :-1], "y": toks[:, 1:]}, mesh,
+                            strategy)
+        x, y = (batch[k].to_local().long() for k in ("x", "y"))
+        with torch.no_grad():
+            _, _, spmd, aux = moe_gpt.sharded_hidden(model, x, mesh,
+                                                     shardings)
+            aux = collectives.allreduce(moe_gpt.total_aux_loss(aux),
+                                        spmd.data_axes, mesh=mesh)
+        params = dict(model.named_parameters())
+        losses = _sharded_steps(
+            lambda: moe_gpt.sharded_loss(model, x, y, mesh, shardings),
+            params, mesh, shardings, MOE_LR)
+        out[name] = {"aux": float(aux), "losses": losses,
+                     "mesh": mesh.shape,
+                     "local_experts": tuple(params["h0.moe.experts_up"]
+                                            .shape)}
+    return out
+
+
+DROPOUT = 0.1
+DROPOUT_SEED = 21
+
+
+def sc_dropout_sharded(inputs):
+    """Dropout in the sharded forwards, `deterministic=False`: GPT at
+    tp=2 sp=2 and BERT at dp=2 tp=2 from a generator in the same state as
+    the unsharded forward's; the gathered hidden states of both, and the
+    global mask the ranks' blocks make up against the unsharded draw."""
+    import torch
+
+    from ray_tpu_torch.models import bert, convert, gpt
+    from ray_tpu_torch.ops import flash_attention
+    from ray_tpu_torch.parallel import shard_batch
+
+    def gen():
+        return torch.Generator().manual_seed(DROPOUT_SEED)
+
+    out = {}
+    cfg = gpt.GPTConfig(**GPT_CFG, dtype=torch.float32, remat=False,
+                        dropout=DROPOUT)
+    toks = gpt_tokens()[:, :-1]
+    attend = partial(flash_attention, causal=True)
+    plain = gpt.GPT.from_params(cfg, convert.gpt_params_from_jax(
+        inputs["gpt_tree"], cfg, device="cpu", dtype=torch.float32),
+        attention_fn=attend)
+    strategy, mesh, shardings, placed = _placed(
+        gpt, convert.gpt_params_from_jax, inputs["gpt_tree"], cfg,
+        dict(tp=2, sp=2))
+    model = gpt.GPT.from_params(cfg, placed, attention_fn=attend)
+    x = shard_batch({"x": toks}, mesh, strategy)["x"].to_local().long()
+    with torch.no_grad():
+        hidden, _, spmd = gpt.sharded_hidden(model, x, mesh, shardings,
+                                             deterministic=False,
+                                             generator=gen())
+        ref, _ = plain(torch.from_numpy(toks).long(), return_hidden=True,
+                       deterministic=False, generator=gen())
+        still, _, _ = gpt.sharded_hidden(model, x, mesh, shardings)
+        shape = (toks.shape[0], toks.shape[1], cfg.d_model)
+        block = spmd.dropout_keep(tuple(x.shape) + (cfg.d_model,), DROPOUT,
+                                  gen(), "cpu")
+        whole = gpt.dropout_keep(shape, DROPOUT, gen(), "cpu")
+    # remat's recompute keeps the forward's masks: the gradients with
+    # and without it, from the same generator state, are equal
+    y = shard_batch({"y": gpt_tokens()[:, 1:]}, mesh,
+                    strategy)["y"].to_local().long()
+    grads = []
+    for remat in (False, True):
+        net = gpt.GPT.from_params(dataclasses.replace(cfg, remat=remat),
+                                  placed, attention_fn=attend,
+                                  trainable=True)
+        gpt.sharded_loss(net, x, y, mesh, shardings, deterministic=False,
+                         generator=gen()).backward()
+        grads.append({n: p.grad.clone() for n, p in
+                      net.named_parameters()})
+        net.zero_grad(set_to_none=True)
+    remat_err = max(float((grads[0][n] - grads[1][n]).abs().max())
+                    for n in grads[0])
+    out["gpt"] = {"hidden": _gather_blocks(hidden, mesh), "plain":
+                  ref.numpy(), "deterministic": _gather_blocks(still, mesh),
+                  "mask": _gather_blocks(block, mesh), "whole":
+                  whole.numpy(), "mesh": mesh.shape, "remat_err": remat_err}
+    bcfg = bert.BertConfig.tiny(dtype=torch.float32, remat=False,
+                                dropout=DROPOUT)
+    plain = bert.BertEncoder.from_params(bcfg, convert.bert_params_from_jax(
+        inputs["bert_tree"], bcfg, device="cpu"))
+    strategy, mesh, shardings, placed = _placed(
+        bert, convert.bert_params_from_jax, inputs["bert_tree"], bcfg,
+        dict(dp=2, tp=2))
+    model = bert.BertEncoder.from_params(bcfg, placed)
+    x = shard_batch({"x": bert_tokens()}, mesh, strategy)["x"]
+    with torch.no_grad():
+        hidden, _, _ = bert.sharded_hidden(model, x.to_local().long(), mesh,
+                                           shardings, deterministic=False,
+                                           generator=gen())
+        ref, _ = plain(torch.from_numpy(bert_tokens()).long(),
+                       deterministic=False, generator=gen())
+    out["bert"] = {"hidden": _gather_blocks(hidden, mesh),
+                   "plain": ref.numpy(), "mesh": mesh.shape}
+    return out
+
+
+VIT_LR = 1e-3
+
+
+def vit_batch():
+    rng = np.random.default_rng(23)
+    return (rng.standard_normal((8, 32, 32, 3)).astype(np.float32),
+            rng.integers(0, 10, 8).astype(np.int32))
+
+
+def sc_vit_sharded(inputs):
+    """The tiny ViT at dp=2 tp=2: two AdamW steps' global losses; and a
+    mesh with sp refused."""
+    import torch
+
+    from ray_tpu_torch.models import convert, vit
+    from ray_tpu_torch.parallel import shard_batch
+
+    cfg = vit.ViTConfig.tiny(dtype=torch.float32, remat=False)
+    strategy, mesh, shardings, placed = _placed(
+        vit, convert.vit_params_from_jax, inputs["vit_tree"], cfg,
+        dict(dp=2, tp=2))
+    model = vit.ViT.from_params(cfg, placed, trainable=True)
+    imgs, labels = vit_batch()
+    batch = shard_batch({"x": imgs, "y": labels}, mesh, strategy)
+    x, y = batch["x"].to_local(), batch["y"].to_local().long()
+    params = dict(model.named_parameters())
+    losses = _sharded_steps(
+        lambda: vit.sharded_loss(model, x, y, mesh, shardings), params,
+        mesh, shardings, VIT_LR)
+    _, sp_mesh, sp_shardings, sp_placed = _placed(
+        vit, convert.vit_params_from_jax, inputs["vit_tree"], cfg,
+        dict(dp=2, sp=2))
+    try:
+        vit.sharded_hidden(vit.ViT.from_params(cfg, sp_placed), x, sp_mesh,
+                           sp_shardings)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return {"losses": losses, "mesh": mesh.shape, "sp_refused": refused,
+            "local_head": tuple(params["head.weight"].shape)}
+
+
+RESNET_LR = 1e-3
+RESNET_CFG = dict(stage_sizes=(1, 1), num_classes=10, width=8,
+                  small_images=True)
+
+
+def resnet_batch():
+    rng = np.random.default_rng(29)
+    return (rng.standard_normal((8, 16, 16, 3)).astype(np.float32),
+            rng.integers(0, 10, 8).astype(np.int32))
+
+
+def sc_resnet_sharded(inputs):
+    """A small ResNet at dp=2 fsdp=2: two AdamW steps' global losses and,
+    after the first, every rank's running statistics."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import convert, gpt, resnet
+    from ray_tpu_torch.parallel import shard_batch
+
+    cfg = resnet.ResNetConfig(dtype=torch.float32, **RESNET_CFG)
+    strategy, mesh, shardings, placed = _placed(
+        resnet, convert.resnet_variables_from_jax, inputs["resnet_vars"],
+        cfg, dict(dp=2, fsdp=2))
+    model = resnet.ResNet.from_params(cfg, placed, trainable=True)
+    imgs, labels = resnet_batch()
+    batch = shard_batch({"x": imgs, "y": labels}, mesh, strategy)
+    x, y = batch["x"].to_local(), batch["y"].to_local().long()
+    params = dict(model.named_parameters())
+    opt = _adamw(params.values(), RESNET_LR)
+    losses, stats = [], None
+    for _ in range(2):
+        loss = resnet.sharded_loss(model, x, y, mesh, shardings)
+        loss.backward()
+        gpt.reduce_gradients(params, mesh, shardings)
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(gpt.global_loss(loss, mesh)))
+        if stats is None:
+            stats = [None] * dist.get_world_size()
+            dist.all_gather_object(stats, {
+                n: b.numpy().copy() for n, b in model.named_buffers()})
+    return {"losses": losses, "stats": stats, "mesh": mesh.shape,
+            "local_stem": tuple(params["stem.weight"].shape)}
+
+
 GANGS = {
     "w4": [sc_mesh, sc_device_allreduce, sc_collectives, sc_ring,
            sc_ring_grad, sc_ulysses, sc_gqa, sc_pipeline, sc_moe,
@@ -638,6 +976,9 @@ GANGS = {
     "w8": [sc_gpt8],
     "zoo": [sc_bert_sharded, sc_moe_gpt_sharded],
     "ckpt": [sc_ckpt_save, sc_ckpt_restore],
+    "llama": [sc_llama_sharded],
+    "zoo_more": [sc_moe_tp_sp, sc_dropout_sharded, sc_vit_sharded,
+                 sc_resnet_sharded],
 }
 
 
@@ -671,6 +1012,14 @@ def run_gang(gang: str, world: int, tmp: Path, inputs: dict,
              timeout: float = 240.0) -> dict:
     """Run GANG in `world` processes; rank 0's results. Raises with the
     ranks' output if any fails or the gang outlives `timeout`."""
+    return start_gang(gang, world, tmp, inputs, timeout)()
+
+
+def start_gang(gang: str, world: int, tmp: Path, inputs: dict,
+               timeout: float = 240.0):
+    """Start GANG in `world` processes and return `wait()`, which waits for
+    them and gives rank 0's results (`run_gang`); the caller may work
+    meanwhile."""
     tmp.mkdir(parents=True, exist_ok=True)
     inputs_path = tmp / "inputs.pkl"
     with open(inputs_path, "wb") as f:
@@ -684,23 +1033,27 @@ def run_gang(gang: str, world: int, tmp: Path, inputs: dict,
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(world)]
     deadline = time.monotonic() + timeout
-    logs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=max(1.0,
-                                               deadline - time.monotonic()))
-            logs.append(out.decode(errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(p.returncode for p in procs):
-        raise RuntimeError(f"gang {gang} failed: " + "\n".join(
-            f"--- rank {r} rc {p.returncode}\n{log[-3000:]}"
-            for r, (p, log) in enumerate(zip(procs, logs))))
-    with open(tmp / "rank0.pkl", "rb") as f:
-        return pickle.load(f)
+
+    def wait() -> dict:
+        logs = []
+        try:
+            for p in procs:
+                out, _ = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+                logs.append(out.decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"gang {gang} failed: " + "\n".join(
+                f"--- rank {r} rc {p.returncode}\n{log[-3000:]}"
+                for r, (p, log) in enumerate(zip(procs, logs))))
+        with open(tmp / "rank0.pkl", "rb") as f:
+            return pickle.load(f)
+
+    return wait
 
 
 if __name__ == "__main__":

@@ -374,25 +374,28 @@ def test_a_miss_runs_the_function_once():
         assert float(c) == i
 
 
-def test_graphing_is_false_on_the_cpu_entry():
-    """`graphing()` (read by GPT's dropout check) is true only while a
-    step is run for a capture on the card: the CPU entry is the eager
-    function, so a dropout forward runs there, and the same generator
-    seed gives the same masks as a direct call."""
-    from ray_tpu_torch.models import gpt
+def test_generator_arguments_key_by_identity():
+    """A `torch.Generator` argument is keyed by identity, not by its
+    state: the same generator hits (and the CPU entry draws from it as a
+    direct call would, advancing it), another generator is a new
+    signature (a miss and a retrace, as a new Python constant is). On the
+    card the generator is registered with the graph
+    (`test_torch_cuda.py::test_graph_capture_of_dropout_raises`); a CPU
+    generator there is refused before the eager run."""
+    def draw(x, gen):
+        return x + torch.rand(x.shape, generator=gen)
 
-    cfg = gpt.GPTConfig.tiny(dtype=torch.float32, dropout=0.1)
-    net = gpt.GPT.from_params(cfg, gpt.init_params(
-        cfg, torch.Generator().manual_seed(0), "cpu", dtype=torch.float32))
-    seen = []
-
-    def fwd(toks, seed):
-        seen.append(tcc.graphing())
-        gen = torch.Generator().manual_seed(seed)
-        return net(toks, deterministic=False, generator=gen)
-
-    toks = torch.zeros(1, 8, dtype=torch.long)
-    f = tcc.compiled_step(fwd, cache=tcc.ExecutableCache())
-    got = f(toks, 7)
-    assert seen == [False] and not tcc.graphing()
-    torch.testing.assert_close(got, fwd(toks, 7), rtol=0, atol=0)
+    cache = tcc.ExecutableCache()
+    f = tcc.compiled_step(draw, cache=cache)
+    x = torch.zeros(4)
+    gen, twin = (torch.Generator().manual_seed(3) for _ in range(2))
+    got = [f(x, gen) for _ in range(3)]
+    want = [draw(x, twin) for _ in range(3)]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert not torch.equal(got[1], got[2])
+    assert cache.stats.as_dict() == {"hits": 2, "misses": 1, "retraces": 0}
+    f(x, torch.Generator().manual_seed(3))
+    assert cache.stats.as_dict() == {"hits": 2, "misses": 2, "retraces": 1}
+    with pytest.raises(ValueError, match="generator on cpu"):
+        tcc._generators([x, gen], torch.device("cuda", 0))

@@ -518,7 +518,8 @@ def test_graph_miss_runs_the_function_once(cuda):
 def _tiny_gpt_runner(cuda, cfg, seed, **forward_kw):
     """A tiny GPT on the card with AdamW(capturable) and its carry, and
     the train step of chip_smoke (forward, fused CE, backward, step);
-    `forward_kw` goes to the model's forward."""
+    `forward_kw` goes to the model's forward, and so does the step's
+    `generator` argument."""
     from functools import partial
 
     from ray_tpu_torch.models import gpt
@@ -540,8 +541,11 @@ def _tiny_gpt_runner(cuda, cfg, seed, **forward_kw):
     carry = {"params": named,
              "step": {n: opt.state[p]["step"] for n, p in named.items()}}
 
-    def step(carry, toks):
-        hidden, wte = net(toks[:, :-1], return_hidden=True, **forward_kw)
+    def step(carry, toks, generator=None):
+        kw = dict(forward_kw)
+        if generator is not None:
+            kw["generator"] = generator
+        hidden, wte = net(toks[:, :-1], return_hidden=True, **kw)
         loss = fused_cross_entropy(hidden, wte, toks[:, 1:])
         loss.backward()
         opt.step()
@@ -872,26 +876,105 @@ def test_checkpoint_restored_into_the_live_carry_keeps_replays_valid(
 
 
 def test_graph_capture_of_dropout_raises(cuda):
-    """Dropout inside a captured step would replay the capture's masks:
-    the step raises before its eager first run takes effect, so the
-    carry is untouched (no AdamW step) and nothing is cached."""
+    """Dropout inside a captured train step. A CUDA generator among the
+    step's arguments is registered with the graph: over 4 calls (the miss,
+    then 3 replays) the losses and weights equal 4 eager steps from a
+    generator in the same state, and so does the generator's state after
+    them. A CPU generator cannot draw inside the graph: that capture
+    raises before its eager first run takes effect, so the carry is
+    untouched (no AdamW step) and nothing is cached."""
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.parallel import ExecutableCache, compiled_step
 
     cfg = gpt.GPTConfig.tiny(dtype=torch.float32, dropout=0.1, remat=False)
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    net, carry, step = _tiny_gpt_runner(cuda, cfg, 0, deterministic=False,
-                                        generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    eager_net, eager_carry, eager_step = _tiny_gpt_runner(
+        cuda, cfg, 0, deterministic=False)
+    eager_gen = torch.Generator(device=cuda).manual_seed(7)
+    want = [float(eager_step(eager_carry, toks, eager_gen)[1])
+            for _ in range(4)]
+    net, carry, step = _tiny_gpt_runner(cuda, cfg, 0, deterministic=False)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    cache = ExecutableCache()
+    f = compiled_step(step, donate_argnums=(0,), cache=cache)
+    got = []
+    for _ in range(4):
+        carry, loss = f(carry, toks, gen)
+        got.append(float(loss))
+    assert cache.stats.as_dict() == {"hits": 3, "misses": 1, "retraces": 0}
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for (n, p), q in zip(net.named_parameters(), eager_net.parameters()):
+        assert float((p - q).abs().max()) <= 1e-5, n
+    assert torch.equal(gen.get_state(), eager_gen.get_state())
+
+    net, carry, step = _tiny_gpt_runner(cuda, cfg, 0, deterministic=False)
     before = {n: p.detach().clone() for n, p in net.named_parameters()}
     cache = ExecutableCache()
     f = compiled_step(step, donate_argnums=(0,), cache=cache)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        f(carry, torch.zeros(1, 9, dtype=torch.long, device=cuda))
+    with pytest.raises(ValueError, match="generator on cpu"):
+        f(carry, toks, torch.Generator().manual_seed(7))
     torch.cuda.synchronize()
     assert all(float(s) == 0 for s in carry["step"].values())
     for n, p in net.named_parameters():
         assert torch.equal(p, before[n]), n
     assert cache.size() == 0
+
+
+def _dropout_forward(cuda, family):
+    """A tiny BERT or ViT on the card (f32, dropout 0.1, their default
+    attention: no kernel) and `forward(x, generator)` with dropout on,
+    and its input."""
+    from ray_tpu_torch.models import bert, vit
+
+    gen = torch.Generator().manual_seed(0)
+    if family == "bert":
+        cfg = bert.BertConfig.tiny(dtype=torch.float32, dropout=0.1,
+                                   remat=False)
+        net = bert.BertEncoder.from_params(
+            cfg, bert.init_params(cfg, gen, cuda, torch.float32))
+        x = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+        return (lambda x, g: net(x, deterministic=False, generator=g)[0]), \
+            x.to(cuda)
+    cfg = vit.ViTConfig.tiny(dtype=torch.float32, dropout=0.1, remat=False)
+    net = vit.ViT.from_params(cfg, vit.init_params(cfg, gen, cuda,
+                                                   torch.float32))
+    x = torch.randn((2, 32, 32, 3), generator=gen)
+    return (lambda x, g: net(x, deterministic=False, generator=g)), \
+        x.to(cuda)
+
+
+@pytest.mark.parametrize("family", ["bert", "vit"])
+def test_graph_dropout_of_bert_and_vit_draws_fresh_masks(cuda, family):
+    """BERT's and ViT's forwards draw their dropout masks with no capture
+    check of their own. Captured as compiled_step captured them before it
+    registered a step's generator (a plain `torch.cuda.graph` of the
+    forward after an eager run), the draw from the unregistered CUDA
+    generator fails the capture: PyTorch refuses it, so no graph ever
+    replayed the capture's masks. Through compiled_step the generator is
+    registered: the miss and two replays equal three eager calls from a
+    generator in the same state, and the two replays' masks differ."""
+    from ray_tpu_torch.parallel import ExecutableCache, compiled_step
+
+    fwd, x = _dropout_forward(cuda, family)
+    with torch.no_grad():
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        fwd(x, gen)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="capture"):
+            with torch.cuda.graph(graph):
+                fwd(x, gen)
+        torch.cuda.synchronize()
+
+        eager_gen = torch.Generator(device=cuda).manual_seed(5)
+        want = [fwd(x, eager_gen).clone() for _ in range(3)]
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        f = compiled_step(fwd, cache=ExecutableCache())
+        got = [f(x, gen).clone() for _ in range(3)]
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5
+    assert float((got[1] - got[2]).abs().max()) > 1e-2
 
 
 def test_graph_capture_of_a_host_sync_in_backward_fails(cuda):

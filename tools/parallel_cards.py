@@ -2,16 +2,17 @@
 """`chip_smoke.py` phase 16 (a) alone, on every visible card.
 
     python3 tools/parallel_cards.py            # on a host with four cards
+    python3 tools/parallel_cards.py llama      # Llama-125M instead
 
 Builds the kernels, then trains the `train` phase's GPT-2 125M (same seed,
-weights and batch) through the sharded step in a `TorchTrainer` gang of
-one NCCL GPU worker per visible card (`chip_smoke.parallel_gang`: four
-cards give `_pick_strategy(4)`, fsdp=2 tp=2), and holds its losses to
-`ONE_RANK_LOSSES`: the one-rank phase's losses on the same weights and
-batch, from a whole smoke on NVIDIA H100 80GB HBM3, 700 W (those were
-within 9.83e-5 of the `train` phase's). `REF_MS` is that run's `train`
-K=1 / K=4 step ms, printed beside the gang's. Prints the phase's line and
-its row as JSON.
+weights and batch; with `llama`, the `train_llama` phase's Llama-125M)
+through the sharded step in a `TorchTrainer` gang of one NCCL GPU worker
+per visible card (`chip_smoke.parallel_gang`: four cards give
+`_pick_strategy(4)`, fsdp=2 tp=2), and holds its losses to the one-rank
+phase's losses on the same weights and batch (`REFS`, each from a whole
+smoke on NVIDIA H100 80GB HBM3, 700 W). Beside them, that run's `train`
+(`train_llama`) K=1 / K=4 step ms, printed beside the gang's. Prints the
+phase's line and its row as JSON.
 """
 
 import json
@@ -31,20 +32,33 @@ ONE_RANK_LOSSES = [
     9.000784873962402, 8.797502517700195, 8.58687973022461,
     8.500062942504883, 8.330854415893555]
 REF_MS = (86.20863350000008, 83.90389149999915)
+LLAMA_ONE_RANK_LOSSES = [
+    10.528428077697754, 10.244949340820312, 9.956871032714844,
+    9.722111701965332, 9.494029998779297, 9.289459228515625,
+    9.083341598510742, 8.873579025268555, 8.657715797424316,
+    8.42133903503418, 8.1685791015625, 7.942204475402832, 7.72705078125,
+    7.4531378746032715]
+LLAMA_REF_MS = (75.09791330000013, 74.20928983333279)
+# family: (the one-rank losses, the reference step ms, the config)
+REFS = {"gpt": (ONE_RANK_LOSSES, REF_MS, "gpt2_125m"),
+        "llama": (LLAMA_ONE_RANK_LOSSES, LLAMA_REF_MS, "llama_125m")}
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
+    family = argv[0] if argv else "gpt"
+    losses, ref_ms, model = REFS[family]
     t0 = time.time()
     print("card", chip_smoke.card_line(), torch.cuda.device_count(),
           flush=True)
     chip_smoke.phase_build()
-    row = chip_smoke.parallel_gang(ONE_RANK_LOSSES, REF_MS)
+    row = chip_smoke.parallel_gang(losses, ref_ms, model=model,
+                                   family=family)
     print("GANG", json.dumps(row, default=str), flush=True)
     print("total", time.time() - t0, flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
