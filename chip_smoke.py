@@ -187,7 +187,8 @@ a non-zero exit) on any failed check:
    arrive on the driver's card. Prints the fused execute against the
    eager chain, and the compiled execute's median round trip over 50
    against the lazy `execute()`'s;
-13. soak: the port's soak in local mode (30 s budget, seed 3, the
+13. soak: the port's soak in local mode (a 20 s budget, cut from the
+   test's 30 s to make room for phase 19; seed 3, the
    `ckpt_fail` and `data_stall` fault classes; its clock starts at the
    gang's first report and leaves out a restart's outage; its train loop
    on the CPU by design), with the
@@ -320,7 +321,9 @@ a non-zero exit) on any failed check:
    tp=2 (the experts' hidden width split, their outputs summed over tp)
    and at sp=2 (the global per-row slot order), ViT-B/16 and ResNet-50 at
    fsdp=2 on (a)'s 64 images (the `embed` shards gathered at use;
-   ResNet's BatchNorm on the global batch's statistics). Checks: both
+   ResNet's BatchNorm on the global batch's statistics), and ViT-B/16 at
+   sp=2 (its 197 tokens padded to 198, 99 rows a rank, the class token's
+   on rank 0; Ulysses on its 12 heads, the pad key masked). Checks: both
    ranks' losses equal and within 5e-3 relative of the unsharded run's
    (Llama: phase 5's eager steps; the others: (a)'s eager steps, AdamW
    capturable as there), falling; the flash kernels n_layer
@@ -350,8 +353,20 @@ a non-zero exit) on any failed check:
    return, each learner's graphed and eager ms per update and, from a
    profile, the kernels an update runs (and whether the trace kept both
    end markers);
-19. the `kernels` JSON line (every ported kernel with its numbers), the
-   card line, and last the result line
+19. dryrun: `ray_tpu_torch.dryrun` (the port's `__graft_entry__.py`) on
+   the card. `entry()`: GPT-2 125M's forward on 128 tokens with the
+   flash kernel, its logits against the same weights' forward with the
+   plain attention (LOGIT_ATOL), n_layer forward launches. Then
+   `dryrun_multichip(1)`: one NCCL rank in a process of its own, the JAX
+   dry run's steps on one chip: the tiny GPT's AdamW step (f32, head_dim
+   32: the flash kernels, 2 forward and 4 backward launches, held to
+   their plain versions at that shape in phases 3 and 4), its loss
+   within 2e-4 of one rank's forward with dense attention; the updated
+   parameters through a sharded checkpoint, restored bit for bit;
+   MoE-GPT tiny's step at ep=1 against one rank's loss. Prints both
+   forwards' ms, the error, the launches and each step's seconds;
+20. the `kernels` JSON line (every ported kernel with its numbers), the
+   card line, each phase's seconds, and last the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -384,6 +399,7 @@ from ray_tpu_torch import native, serve
 from ray_tpu_torch._private.ids import ObjectID
 from ray_tpu_torch._private.object_ref import get_core_worker
 from ray_tpu_torch._private.worker_api import ActorMethod
+from ray_tpu_torch.dryrun import pick_strategy
 from ray_tpu_torch.models import gpt as gpt_mod
 from ray_tpu_torch.models import llama as llama_mod
 from ray_tpu_torch.ops import _build
@@ -819,6 +835,7 @@ KERNEL_SHAPES = [
     ("llama rank GQA 6:2 B=16 T=1024", 16, 1024, 6, 2, 64, torch.bfloat16,
      True),
     ("moe-gpt rank H=6 B=8 T=1024", 8, 1024, 6, 6, 64, torch.bfloat16, True),
+    ("dryrun gpt f32 d=32 B=2 T=16", 2, 16, 2, 2, 32, torch.float32, True),
 ]
 MAIN_SHAPE = "gpt2 prefill T=1024"
 TRAIN_SHAPE = "gpt2 train B=16 T=1024"
@@ -835,6 +852,9 @@ BERT_SHAPE = "bert MLM B=32 T=512 non-causal"
 # MoE-GPT at tp=2 or sp=2 (6 of the 12 heads)
 RANK_LLAMA_SHAPE = "llama rank GQA 6:2 B=16 T=1024"
 RANK_MOE_SHAPE = "moe-gpt rank H=6 B=8 T=1024"
+# the shape the GPT step of `dryrun_multichip(1)` (phase 19) gives both
+# kernels: the tiny GPT in f32, B=2 T=16, 2 heads of 32
+DRYRUN_SHAPE = "dryrun gpt f32 d=32 B=2 T=16"
 BWD_SHAPES = [
     # (label, b, t, h, h_kv, d, dtype, causal)
     (TRAIN_SHAPE, 16, 1024, 12, 12, 64, torch.bfloat16, True),
@@ -850,6 +870,7 @@ BWD_SHAPES = [
     (BERT_SHAPE, 32, 512, 12, 12, 64, torch.bfloat16, False),
     (RANK_LLAMA_SHAPE, 16, 1024, 6, 2, 64, torch.bfloat16, True),
     (RANK_MOE_SHAPE, 8, 1024, 6, 6, 64, torch.bfloat16, True),
+    (DRYRUN_SHAPE, 2, 16, 2, 2, 32, torch.float32, True),
 ]
 
 
@@ -3579,7 +3600,7 @@ def _soak_faults(chaos_dir):
     return out
 
 
-def phase_soak(budget_s=30.0, seed=3):
+def phase_soak(budget_s=20.0, seed=3):
     """The port's soak (module docstring, phase 13): local mode with the
     assertions of `tests/test_soak.py::test_soak_smoke_local`, then
     cluster mode with the same assertions, its `kill@raylet` fired in a
@@ -4565,21 +4586,6 @@ PARALLEL_PAIRS = ({"tp": 2}, {"fsdp": 2})  # the two-rank gloo runs
 PARALLEL_CKPT_AXES = {"fsdp": 2}  # the pair that saves a sharded checkpoint
 
 
-def _pick_strategy(n_devices):
-    """`__graft_entry__._pick_strategy` (the JAX package's multi-device
-    dry run): factors of two peeled onto fsdp, tp, sp; the rest is dp, so
-    1 -> every axis 1, 4 -> fsdp=2 tp=2, 8 -> fsdp=2 tp=2 sp=2."""
-    from ray_tpu_torch.parallel import ShardingStrategy
-
-    axes = {"fsdp": 1, "tp": 1, "sp": 1}
-    rem = n_devices
-    for name in ("fsdp", "tp", "sp"):
-        if rem % 2 == 0:
-            axes[name] = 2
-            rem //= 2
-    return ShardingStrategy(dp=rem, **axes)
-
-
 def _sharded_train(mod, net, mesh, shardings, capturable):
     """AdamW over `net`'s shards and the sharded step of model module
     `mod` (`sharded_loss`, `reduce_gradients`, AdamW): (carry, step)."""
@@ -4685,13 +4691,13 @@ def _parallel_loop(config):
 
 
 def _parallel_worker(config):
-    """One rank of phase 16 (a): `_pick_strategy(world)`'s mesh over the
+    """One rank of phase 16 (a): `pick_strategy(world)`'s mesh over the
     gang's NCCL group, the sharded step through `TrainStepRunner(mesh=)`
     at K=1 for 6 steps, then K=4 twice; one report at the end."""
     from ray_tpu_torch import train
 
     device = config["device"]
-    strategy = _pick_strategy(torch.distributed.get_world_size())
+    strategy = pick_strategy(torch.distributed.get_world_size())
     t0 = time.perf_counter()
     s = _sharded_setup(strategy, config["model"], config["seed"],
                        config["batch"], config["seq"], device,
@@ -4745,64 +4751,54 @@ def _parallel_worker(config):
                   if device == "cuda" else 0.0)))
 
 
-def _parallel_pair_rank(config_json):
+def _parallel_pair_rank(config):
     """One rank of the two-rank gloo runs on the one card (phase 16 (b)):
     for each mesh of `config["axes"]`, `PARALLEL_PAIR_STEPS` eager sharded
     steps (gloo collectives cannot be captured into a graph); on the mesh
     `config["ckpt_axes"]` the carry is then saved through
     `save_to_checkpoint` (rank 0's directory the checkpoint, rank k's its
     `_shards/rank_k`, as the train session persists them) and a 4th step
-    taken. The losses, times and the saved blocks' checksums to `out`."""
-    config = json.loads(config_json)
+    taken. Returns the losses, times and the saved blocks' checksums."""
     from ray_tpu_torch.parallel import ShardingStrategy
 
     device = config["device"]
-    if device == "cuda":
-        torch.cuda.set_device(0)
-    torch.distributed.init_process_group(
-        "gloo", init_method=f"file://{config['store']}",
-        world_size=2, rank=config["rank"])
     rows = []
-    try:
-        for axes in config["axes"]:
-            if device == "cuda":
-                torch.cuda.reset_peak_memory_stats()
-            s = _sharded_setup(ShardingStrategy(**axes), config["model"],
-                               config["seed"], config["batch"],
-                               config["seq"], device, capturable=False)
-            carry, losses, ms = s["carry"], [], []
-            # this run's main path: counts at 0 just before, read after
-            flash_attention.launches = 0
-            flash_attention_bwd.launches = 0
-            for _ in range(PARALLEL_PAIR_STEPS):
-                t0 = time.perf_counter()
-                carry, loss = s["step"](carry, s["data"])
-                losses.append(float(loss))
-                ms.append((time.perf_counter() - t0) * 1e3)
-            rows.append(dict(
-                axes=axes, losses=losses, step_ms=ms, mesh=s["mesh"].shape,
-                local_shapes=s["local_shapes"], backend=s["backend"],
-                fwd_launches=flash_attention.launches,
-                bwd_launches=flash_attention_bwd.launches,
-                peak_gib=(torch.cuda.max_memory_allocated() / 2**30
-                          if device == "cuda" else 0.0)))
-            if axes == config.get("ckpt_axes"):
-                rows[-1]["ckpt"] = _pair_checkpoint(s, carry, config)
-            del s, carry
-            gc.collect()
-            if device == "cuda":
-                torch.cuda.empty_cache()
-    finally:
-        torch.distributed.destroy_process_group()
-    with open(f"{config['out']}.{config['rank']}.json", "w") as f:
-        json.dump(rows, f)
+    for axes in config["axes"]:
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        s = _sharded_setup(ShardingStrategy(**axes), config["model"],
+                           config["seed"], config["batch"], config["seq"],
+                           device, capturable=False)
+        carry, losses, ms = s["carry"], [], []
+        # this run's main path: counts at 0 just before, read after
+        flash_attention.launches = 0
+        flash_attention_bwd.launches = 0
+        for _ in range(PARALLEL_PAIR_STEPS):
+            t0 = time.perf_counter()
+            carry, loss = s["step"](carry, s["data"])
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(dict(
+            axes=axes, losses=losses, step_ms=ms, mesh=s["mesh"].shape,
+            local_shapes=s["local_shapes"], backend=s["backend"],
+            fwd_launches=flash_attention.launches,
+            bwd_launches=flash_attention_bwd.launches,
+            peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                      if device == "cuda" else 0.0)))
+        if axes == config.get("ckpt_axes"):
+            rows[-1]["ckpt"] = _pair_checkpoint(s, carry, config)
+        del s, carry
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return rows
 
 
 def _pair_checkpoint(s, carry, config):
     """Saves the pair's carry (each rank its shards), then takes the 4th
     step: the save's seconds, the bytes this rank wrote, its blocks'
     checksums and the 4th step's loss."""
-    rank = config["rank"]
+    rank = torch.distributed.get_rank()
     tree = _global_carry(dict(s, carry=carry))
     if config["device"] == "cuda":
         torch.cuda.synchronize()
@@ -4826,75 +4822,52 @@ def _pair_checkpoint(s, carry, config):
                 loss4=float(loss), dir=dest)
 
 
-def _parallel_restore(config_json):
+def _parallel_restore(config):
     """Phase 16 (b)'s restore: one process, a {"dp": 1} mesh on the card
     (a gloo group of one), the `train` setup's carry as DTensors restored
     from the pair's sharded checkpoint and copied into the live carry,
-    then one eager step. The restore's seconds, each saved block's
-    checksum over the restored values, and the step's loss to `out`."""
-    config = json.loads(config_json)
+    then one eager step. Returns the restore's seconds, each saved block's
+    checksum over the restored values, and the step's loss."""
     from ray_tpu_torch.parallel import ShardingStrategy
 
     device = config["device"]
+    s = _sharded_setup(ShardingStrategy(), config["model"], config["seed"],
+                       config["batch"], config["seq"], device,
+                       capturable=False)
+    like = _global_carry(s)
+    t0 = time.perf_counter()
+    restored = array_checkpoint.restore_sharded(config["ckpt"], like)
+    with torch.no_grad():
+        for got, live in zip(_tensor_leaves(restored),
+                             _tensor_leaves(s["carry"])):
+            live.copy_(got.to_local() if hasattr(got, "to_local") else got)
     if device == "cuda":
-        torch.cuda.set_device(0)
-    torch.distributed.init_process_group(
-        "gloo", init_method=f"file://{config['store']}", world_size=1,
-        rank=0)
-    try:
-        s = _sharded_setup(ShardingStrategy(), config["model"],
-                           config["seed"], config["batch"], config["seq"],
-                           device, capturable=False)
-        like = _global_carry(s)
-        t0 = time.perf_counter()
-        restored = array_checkpoint.restore_sharded(config["ckpt"], like)
-        with torch.no_grad():
-            for got, live in zip(_tensor_leaves(restored),
-                                 _tensor_leaves(s["carry"])):
-                live.copy_(got.to_local() if hasattr(got, "to_local")
-                           else got)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        full = dict(array_checkpoint._leaves_with_paths(restored))
-        sums = {path: [[idx, _checksum(
-                    full[path].to_local()[tuple(slice(a, b) for a, b in idx)]
-                    if hasattr(full[path], "to_local") else full[path])]
-                    for idx, _ in blocks]
-                for path, blocks in config["checksums"].items()}
-        del restored, full
-        flash_attention.launches = 0
-        flash_attention_bwd.launches = 0
-        _, loss = s["step"](s["carry"], s["data"])
-        row = dict(restore_s=restore_s, checksums=sums, loss=float(loss),
-                   mesh=s["mesh"].shape,
-                   fwd_launches=flash_attention.launches,
-                   bwd_launches=flash_attention_bwd.launches)
-    finally:
-        torch.distributed.destroy_process_group()
-    with open(config["out"], "w") as f:
-        json.dump(row, f)
+        torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    full = dict(array_checkpoint._leaves_with_paths(restored))
+    sums = {path: [[idx, _checksum(
+                full[path].to_local()[tuple(slice(a, b) for a, b in idx)]
+                if hasattr(full[path], "to_local") else full[path])]
+                for idx, _ in blocks]
+            for path, blocks in config["checksums"].items()}
+    del restored, full
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    _, loss = s["step"](s["carry"], s["data"])
+    return dict(restore_s=restore_s, checksums=sums, loss=float(loss),
+                mesh=s["mesh"].shape, fwd_launches=flash_attention.launches,
+                bwd_launches=flash_attention_bwd.launches)
 
 
-def _run_ranks(target, configs, timeout):
-    """`chip_smoke.<target>(config)` in one process per config, all at
-    once; asserts that each exits 0 and none is left running."""
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", "import sys, chip_smoke; "
-         f"chip_smoke.{target}(sys.argv[1])", json.dumps(config)],
-        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for config in configs]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(
-        f"--- {target} {r}:\n{log[-3000:]}" for r, log in enumerate(logs))
+def _gloo_ranks(fn, n, config, device, timeout):
+    """`fn(config)` in `n` gloo ranks (`run_local`; on the card all n share
+    it): every rank's rows, as JSON gives them back (the form in which
+    the smoke prints them)."""
+    from ray_tpu_torch.parallel.distributed import run_local
+
+    return json.loads(json.dumps(run_local(
+        fn, n, device=device, backend="gloo", args=(config,),
+        timeout=timeout)))
 
 
 def _parallel_pair(axes, model, seed, batch, seq, device, timeout=600,
@@ -4905,20 +4878,14 @@ def _parallel_pair(axes, model, seed, batch, seq, device, timeout=600,
     restores onto a {"dp": 1} mesh (its row: the second value)."""
     shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
     PARALLEL_DIR.mkdir()
-    out = str(PARALLEL_DIR / "pair")
     ckpt = str(PARALLEL_DIR / "ckpt")
     common = dict(model=model, seed=seed, batch=batch, seq=seq,
                   device=device)
     t0 = time.perf_counter()
-    _run_ranks("_parallel_pair_rank", [
-        dict(common, rank=rank, axes=list(axes), out=out, ckpt=ckpt,
-             ckpt_axes=ckpt_axes, store=str(PARALLEL_DIR / "store"))
-        for rank in range(2)], timeout)
+    by_rank = _gloo_ranks(_parallel_pair_rank, 2, dict(
+        common, axes=list(axes), ckpt=ckpt, ckpt_axes=ckpt_axes), device,
+        timeout)
     wall_s = time.perf_counter() - t0
-    by_rank = []
-    for rank in range(2):
-        with open(f"{out}.{rank}.json") as f:
-            by_rank.append(json.load(f))
     runs = [list(rows) for rows in zip(*by_rank)]
     restore = None
     if ckpt_axes is not None:
@@ -4930,12 +4897,8 @@ def _parallel_pair(axes, model, seed, batch, seq, device, timeout=600,
         for c in saved:
             for path, blocks in c["checksums"].items():
                 checksums.setdefault(path, []).extend(blocks)
-        _run_ranks("_parallel_restore", [dict(
-            common, ckpt=ckpt, checksums=checksums,
-            out=str(PARALLEL_DIR / "restore.json"),
-            store=str(PARALLEL_DIR / "store1"))], timeout)
-        with open(PARALLEL_DIR / "restore.json") as f:
-            restore = json.load(f)
+        restore, = _gloo_ranks(_parallel_restore, 1, dict(
+            common, ckpt=ckpt, checksums=checksums), device, timeout)
         restore.update(saved=saved, rank1_index=rank1,
                        want_checksums=checksums)
     shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
@@ -5032,7 +4995,7 @@ def parallel_gang(want_losses, ref_ms, model="gpt2_125m", batch=16,
           f"{fit_s:.2f} s (card: {card})")
     assert (m["backend"], m["world"], m["steps"]) == (want_backend, n,
                                                       steps), m
-    assert m["mesh"] == _pick_strategy(n).mesh_axes(n), m["mesh"]
+    assert m["mesh"] == pick_strategy(n).mesh_axes(n), m["mesh"]
     assert all(np.isfinite(losses)) and worst <= tol, \
         (worst, losses, want_losses[:steps])
     # the flash kernels on this rank's heads: n_layer forwards a step,
@@ -5319,8 +5282,8 @@ def _model_cells(device):
             ("resnet50", 64, "images", 0, resnet50)]
 
 
-def _model_run(build, seed, graphed, device):
-    """MODELS_STEPS AdamW steps of a fresh model (eager, or through
+def _model_run(build, seed, graphed, device, steps=MODELS_STEPS):
+    """`steps` AdamW steps of a fresh model (eager, or through
     `TrainStepRunner` at K=1 with the launch counts at 0 just before the
     steps): losses, each step's ms, the launches, peak memory, the
     buffers after the steps and (graphed) the miss's seconds."""
@@ -5352,7 +5315,7 @@ def _model_run(build, seed, graphed, device):
 
         runner = TrainStepRunner(step, device=device)
         stats0 = runner.cache_stats()
-        for _ in range(MODELS_STEPS):
+        for _ in range(steps):
             t0 = time.perf_counter()
             carry, loss = runner.run(carry, batch)
             losses.append(float(loss))  # a host read: the step's end
@@ -5362,7 +5325,7 @@ def _model_run(build, seed, graphed, device):
         global_cache().evict(runner._compiled)
         del runner, carry
     else:
-        for _ in range(MODELS_STEPS):
+        for _ in range(steps):
             t0 = time.perf_counter()
             loss = loss_fn(batch)
             loss.backward()
@@ -5458,7 +5421,8 @@ FAMILY_PAIR_STEPS = 2      # eager steps of each case of phase 17 (b)
 # phase 17 (b): (family, mesh axes) of the two-rank gloo runs on the card
 FAMILY_PAIRS = (("llama", {"tp": 2}), ("llama", {"sp": 2}),
                 ("moe_gpt", {"tp": 2}), ("moe_gpt", {"sp": 2}),
-                ("vit", {"fsdp": 2}), ("resnet50", {"fsdp": 2}))
+                ("vit", {"fsdp": 2}), ("resnet50", {"fsdp": 2}),
+                ("vit", {"sp": 2}))
 
 
 # `_family_sharded_setup(..., tiny=True)`'s configs, for a rehearsal on
@@ -5531,55 +5495,45 @@ def _family_sharded_setup(family, axes, seed, device, tiny=False):
                 flash_layers=cfg.n_layer if family == "moe_gpt" else 0)
 
 
-def _family_pair_rank(config_json):
+def _family_pair_rank(config):
     """One rank of phase 17 (b): each case of `config["cases"]` on its
     mesh, FAMILY_PAIR_STEPS eager sharded steps; per case the losses,
     step ms, launches, peak memory and (ResNet) a checksum of every
-    running statistic to `out`."""
-    config = json.loads(config_json)
+    running statistic."""
     device = config["device"]
-    if device == "cuda":
-        torch.cuda.set_device(0)
-    torch.distributed.init_process_group(
-        "gloo", init_method=f"file://{config['store']}",
-        world_size=2, rank=config["rank"])
     rows = []
-    try:
-        for family, axes in config["cases"]:
-            if device == "cuda":
-                torch.cuda.reset_peak_memory_stats()
-            s = _family_sharded_setup(family, axes, config["seed"], device,
-                                      config["tiny"])
-            carry, losses, ms = s["carry"], [], []
-            # this case's main path: counts at 0 just before, read after
-            flash_attention.launches = 0
-            flash_attention_bwd.launches = 0
-            for _ in range(config["steps"]):
-                t0 = time.perf_counter()
-                carry, loss = s["step"](carry, s["data"])
-                losses.append(float(loss))
-                ms.append((time.perf_counter() - t0) * 1e3)
-            net = s.get("net")
-            stats = None if family != "resnet50" else {
-                n: _checksum(b) for n, b in net.named_buffers()}
-            rows.append(dict(
-                family=family, axes=axes, losses=losses, step_ms=ms,
-                mesh=s["mesh"].shape, local_shapes=s["local_shapes"],
-                backend=s["backend"], stats=stats,
-                flash_layers=(s["flash_layers"] if "flash_layers" in s
-                              else s["cfg"].n_layer),
-                fwd_launches=flash_attention.launches,
-                bwd_launches=flash_attention_bwd.launches,
-                peak_gib=(torch.cuda.max_memory_allocated() / 2**30
-                          if device == "cuda" else 0.0)))
-            del s, carry, net
-            gc.collect()
-            if device == "cuda":
-                torch.cuda.empty_cache()
-    finally:
-        torch.distributed.destroy_process_group()
-    with open(f"{config['out']}.{config['rank']}.json", "w") as f:
-        json.dump(rows, f)
+    for family, axes in config["cases"]:
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        s = _family_sharded_setup(family, axes, config["seed"], device,
+                                  config["tiny"])
+        carry, losses, ms = s["carry"], [], []
+        # this case's main path: counts at 0 just before, read after
+        flash_attention.launches = 0
+        flash_attention_bwd.launches = 0
+        for _ in range(config["steps"]):
+            t0 = time.perf_counter()
+            carry, loss = s["step"](carry, s["data"])
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        net = s.get("net")
+        stats = None if family != "resnet50" else {
+            n: _checksum(b) for n, b in net.named_buffers()}
+        rows.append(dict(
+            family=family, axes=axes, losses=losses, step_ms=ms,
+            mesh=s["mesh"].shape, local_shapes=s["local_shapes"],
+            backend=s["backend"], stats=stats,
+            flash_layers=(s["flash_layers"] if "flash_layers" in s
+                          else s["cfg"].n_layer),
+            fwd_launches=flash_attention.launches,
+            bwd_launches=flash_attention_bwd.launches,
+            peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                      if device == "cuda" else 0.0)))
+        del s, carry, net
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return rows
 
 
 def family_pairs(refs, seed=5, device="cuda", cases=FAMILY_PAIRS,
@@ -5595,21 +5549,11 @@ def family_pairs(refs, seed=5, device="cuda", cases=FAMILY_PAIRS,
     runs the tiny configs (a rehearsal on the CPU)."""
     card = card_line() if device == "cuda" else "cpu"
     per = 1 if device == "cuda" else 0
-    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
-    PARALLEL_DIR.mkdir()
-    out = str(PARALLEL_DIR / "family")
     t0 = time.perf_counter()
-    _run_ranks("_family_pair_rank", [
-        dict(rank=rank, cases=[list(c) for c in cases], out=out, seed=seed,
-             steps=steps, device=device, tiny=tiny,
-             store=str(PARALLEL_DIR / "store"))
-        for rank in range(2)], timeout)
+    by_rank = _gloo_ranks(_family_pair_rank, 2, dict(
+        cases=[list(c) for c in cases], seed=seed, steps=steps,
+        device=device, tiny=tiny), device, timeout)
     wall_s = time.perf_counter() - t0
-    by_rank = []
-    for rank in range(2):
-        with open(f"{out}.{rank}.json") as f:
-            by_rank.append(json.load(f))
-    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
     _assert_clean()
     pairs = []
     for (family, axes), rows in zip(cases, zip(*by_rank)):
@@ -6075,6 +6019,157 @@ def phase_rllib(device="cuda"):
     return row
 
 
+# -- phase 19: dryrun ----------------------------------------------------------
+
+def phase_dryrun(device="cuda"):
+    """Phase 19 (module docstring): `dryrun.entry()` against the plain
+    attention, then `dryrun_multichip(1)`."""
+    from ray_tpu_torch import dryrun
+
+    card = card_line() if device == "cuda" else "cpu"
+    per = 1 if device == "cuda" else 0
+    t0 = time.perf_counter()
+    fn, (params, tokens) = dryrun.entry(device)
+    cfg = gpt_mod.GPTConfig.gpt2_125m(remat=False)
+    # the entry's main path: the counts at 0 just before, read after
+    flash_attention.launches = 0
+    logits = fn(params, tokens)
+    launches = flash_attention.launches
+    plain_net = gpt_mod.GPT.from_params(cfg, params)  # full_attention
+
+    def plain():
+        with torch.no_grad():
+            return plain_net(tokens)
+
+    err = float((logits.float() - plain().float()).abs().max())
+    assert logits.shape == (1, 128, cfg.vocab_size), logits.shape
+    assert bool(torch.isfinite(logits).all()), "entry logits"
+    assert err <= LOGIT_ATOL, err
+    assert launches == cfg.n_layer * per, launches
+    timed = device == "cuda"
+    entry = dict(launches=launches, max_abs_err=err,
+                 ms=cuda_ms(lambda: fn(params, tokens)) if timed else None,
+                 plain_ms=cuda_ms(plain) if timed else None,
+                 shape=list(logits.shape))
+    del fn, params, tokens, logits, plain_net
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    run = dryrun.dryrun_multichip(1, device)
+    multichip_s = time.perf_counter() - t1
+    g, tiny = run["gpt"], gpt_mod.GPTConfig.tiny()
+    print(f"dryrun: entry() GPT-2 125M on 128 tokens, logits vs the plain "
+          f"attention's max abs {err:.3e} (tol {LOGIT_ATOL}), flash "
+          f"launches {launches}, forward ms {entry['ms']} (plain "
+          f"{entry['plain_ms']}); dryrun_multichip(1): gpt loss "
+          f"{g['loss']:.6f} vs one rank's {g['ref_loss']:.6f} on mesh "
+          f"{g['mesh']}, launches fwd {g['fwd_launches']} bwd "
+          f"{g['bwd_launches']}; checkpoint {run['ckpt']}; ep loss "
+          f"{run['ep']['loss']:.6f} vs {run['ep']['ref_loss']:.6f}; steps' "
+          f"seconds {run['seconds']}; the process {multichip_s:.1f} s, the "
+          f"phase {time.perf_counter() - t0:.1f} s (card: {card})")
+    assert run["world"] == 1 and run["device"] == device, run
+    assert g["mesh"] == pick_strategy(1).mesh_axes(1), g["mesh"]
+    assert (g["fwd_launches"], g["bwd_launches"]) == (
+        tiny.n_layer * per, tiny.n_layer * BWD_KERNELS_PER_CALL * per), g
+    assert run["ckpt"]["bitwise"], run["ckpt"]
+    assert np.isfinite(run["ep"]["loss"]), run["ep"]
+    # one chip: no pipeline and no second slice, as in the JAX dry run
+    assert run["pp"] is None and run["multislice"] is None, run
+    return dict(entry=entry, multichip=run, multichip_s=multichip_s,
+                phase_s=time.perf_counter() - t0)
+
+
+VIT_SP_GRAPHED_STEPS = 12   # the capture, then 11 replays to time
+
+
+def _vit_sp_rank(steps, graphed_steps, device="cuda", tiny=False):
+    """A rank of `vit_sp_cards`: ViT-B/16 at tp=2 sp=2 (phase 17's
+    weights and 64 images) over NCCL, `graphed_steps` steps through
+    `TrainStepRunner` at K=1 (its capture the process's first NCCL
+    work), then `steps` eager steps from fresh weights (`tiny`: the tiny
+    ViT, a rehearsal on gloo CPU ranks). Each rank prints its progress,
+    so that a run that stops shows where."""
+    rank = torch.distributed.get_rank()
+    rows = {}
+    for graphed in (True, False):
+        s = _family_sharded_setup("vit", {"tp": 2, "sp": 2}, 5, device,
+                                  tiny)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        runner = TrainStepRunner(s["step"], mesh=s["mesh"], device=device)
+        run = runner.run if graphed else s["step"]
+        carry, losses, ms = s["carry"], [], []
+        for i in range(graphed_steps if graphed else steps):
+            t0 = time.perf_counter()
+            carry, loss = run(carry, s["data"])
+            losses.append(float(loss))  # a host read: the step's end
+            ms.append((time.perf_counter() - t0) * 1e3)
+            print(f"vit_sp rank {rank}: {'graphed' if graphed else 'eager'}"
+                  f" step {i} {ms[-1]:.1f} ms", flush=True)
+        rows["graphed" if graphed else "eager"] = dict(
+            losses=losses, step_ms=ms, cache=runner.cache_stats(),
+            peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                      if device == "cuda" else 0.0))
+        global_cache().evict(runner._compiled)
+        del s, carry, run, runner
+        gc.collect()
+    return dict(rows, mesh=torch.distributed.get_world_size(),
+                backend=torch.distributed.get_backend())
+
+
+def vit_sp_cards(steps=MODELS_STEPS, graphed_steps=VIT_SP_GRAPHED_STEPS,
+                 seed=5):
+    """ViT-B/16 at tp=2 sp=2 on four cards (each tp rank's 6 heads split
+    over sp by Ulysses over NCCL), graphed at K=1 from the process's
+    first step, then eager, against the one-card unsharded graphed run
+    of `graphed_steps` steps from the same weights and batch
+    (`phase_models`' ViT cell): losses within PARALLEL_SPLIT_LOSS_RTOL at
+    each of the first `steps` steps (the check of phase 17; later steps'
+    error printed); the graphed steps' median replay ms and peak memory
+    a rank beside the one card's."""
+    from ray_tpu_torch.parallel.distributed import run_local
+
+    card = card_line()
+    build = next(c[4] for c in _model_cells("cuda") if c[0] == "vit")
+    one = _model_run(build, seed, True, "cuda", steps=graphed_steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = run_local(_vit_sp_rank, 4, device="cuda",
+                    args=(steps, graphed_steps), timeout=180)[0]
+    wall_s = time.perf_counter() - t0
+    one_ms = statistics.median(one["step_ms"][1:])
+    row = dict(one_card_losses=one["losses"], backend=got["backend"],
+               one_card_step_ms=one["step_ms"],
+               one_card_step_ms_median=one_ms,
+               one_card_peak_gib=one["peak_gib"], wall_s=wall_s)
+    for kind in ("graphed", "eager"):
+        r = got[kind]
+        err = _traj_err(r["losses"][:steps], one["losses"][:steps])
+        row[kind] = dict(r, rel_err=err,
+                         rel_err_all=_traj_err(r["losses"], one["losses"]),
+                         step_ms_median=statistics.median(r["step_ms"][1:]))
+        print(f"vit_sp: ViT-B/16 B=64 at tp=2 sp=2 on 4 cards "
+              f"({got['backend']}, {kind}): losses "
+              f"{[round(x, 4) for x in r['losses']]} vs one card's graphed "
+              f"{[round(x, 4) for x in one['losses']]} (worst rel of the "
+              f"first {steps} {err:.2e}, tol {PARALLEL_SPLIT_LOSS_RTOL}; of "
+              f"all {row[kind]['rel_err_all']:.2e}); step ms "
+              f"{[round(x, 2) for x in r['step_ms']]} (median after the "
+              f"first {row[kind]['step_ms_median']:.2f}) vs one card's "
+              f"{[round(x, 2) for x in one['step_ms']]} (median after the "
+              f"first {one_ms:.2f}); peak {r['peak_gib']:.2f} GiB (rank 0) "
+              f"vs {one['peak_gib']:.2f}; {wall_s:.1f} s in all (card: "
+              f"{card})")
+        assert err <= PARALLEL_SPLIT_LOSS_RTOL, (kind, r, one["losses"])
+    assert got["backend"] == "nccl" and got["mesh"] == 4, got
+    assert got["graphed"]["cache"] == {"hits": graphed_steps - 1,
+                                       "misses": 1, "retraces": 0}, got
+    return row
+
+
 def _numbers(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}
@@ -6101,7 +6196,7 @@ BWD_DESIGN = (
 
 def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
                  spec, runtime, serve_row, train_dist, train_data, dag,
-                 cluster, operator, parallel, models, family, ptxas):
+                 cluster, operator, parallel, models, family, dry, ptxas):
     """The `kernels` entries: every ported kernel with its numbers. The
     forward at the serving path's largest prefill shape (with the GPT-2
     run's launches per prefill bucket at that bucket's time), the
@@ -6125,8 +6220,11 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
     GPU worker, `parallel_dropout` the dropout-0.1 GPT-2 run's graphed
     steps; `models_pairs` each two-rank run of phase 17 (b), by family
     and mesh, a list of both ranks' counts, at the rank shapes that are
-    also `training_paths`). Every count is read from the wrappers'
-    counters, none from a profiler trace."""
+    also `training_paths`; `dryrun_entry` the forward of
+    `dryrun.entry()`, `dryrun` the GPT step of `dryrun_multichip(1)`, as
+    its rank counted them, at its shape, also a `training_paths` entry).
+    Every count is read from the wrappers' counters, none from a profiler
+    trace."""
     def at(table, shape):
         return next(r for r in table if r["shape"] == shape)
 
@@ -6149,6 +6247,9 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
             paths[f"models_pairs_{name}"] = dict(
                 at=shape, launches=pair_launches(key, name),
                 **_numbers(at(table, shape)))
+        paths["dryrun"] = dict(at=DRYRUN_SHAPE,
+                               launches=dry["multichip"]["gpt"][key],
+                               **_numbers(at(table, DRYRUN_SHAPE)))
         return paths
 
     def pair_launches(key, name=None):
@@ -6204,6 +6305,8 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_parallel_dropout": parallel["dropout"]["fwd_launches"],
         **model_launches("fwd_launches"),
         "launches_models_pairs": pair_launches("fwd_launches"),
+        "launches_dryrun_entry": dry["entry"]["launches"],
+        "launches_dryrun": dry["multichip"]["gpt"]["fwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **_numbers(main_row),
         "at": MAIN_SHAPE,
@@ -6236,6 +6339,7 @@ def kernels_line(rows, bwd_rows, train, train_llama, train_long, gpt, llama,
         "launches_parallel_dropout": parallel["dropout"]["bwd_launches"],
         **model_launches("bwd_launches"),
         "launches_models_pairs": pair_launches("bwd_launches"),
+        "launches_dryrun": dry["multichip"]["gpt"]["bwd_launches"],
         "kernels_per_call": BWD_KERNELS_PER_CALL,
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "max_rel_err": max(max(r["rel_err"].values()) for r in bwd_rows),
@@ -6259,38 +6363,49 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    phase_s = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
     print(f"device: {kind} | nvidia-smi: {card} | torch {torch.__version__}"
           f" cuda {torch.version.cuda} | python {sys.version.split()[0]}")
-    build_s, ptxas = phase_build()
+    build_s, ptxas = timed("build", phase_build)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = phase_kernels(gen)
-    bwd_rows = phase_backward(gen)
-    train = phase_train(checkpoint=True)
+    rows = timed("kernels", phase_kernels, gen)
+    bwd_rows = timed("backward", phase_backward, gen)
+    train = timed("train", phase_train, checkpoint=True)
     # bench.py's Llama run (`bench_llama_tokens_per_sec`): GQA 12:4
-    train_llama = phase_train(
-        "train_llama", "llama",
+    train_llama = timed(
+        "train_llama", phase_train, "train_llama", "llama",
         cfg=llama_mod.LlamaConfig.llama_125m(remat=False, max_seq_len=1024))
     # bench.py's long-context run (`bench_gpt2_long_context`); the
     # full_attention comparison keeps [B, H, T, T] scores per layer, so it
     # runs at B=1
-    train_long = phase_train("train_long", batch=4, seq=4096, grad_batch=1)
+    train_long = timed("train_long", phase_train, "train_long", batch=4,
+                       seq=4096, grad_batch=1)
 
-    gpt = phase_engine(
-        "gpt", gpt_mod, gpt_mod.GPTConfig.gpt2_125m(), gpt_mod.GPT,
+    gpt = timed(
+        "engine_gpt", phase_engine, "gpt", gpt_mod,
+        gpt_mod.GPTConfig.gpt2_125m(), gpt_mod.GPT,
         buckets=GPT_BUCKETS, prompt_lens=GPT_PROMPT_LENS, max_new=32,
         seed=1)
-    llama = phase_engine(
-        "llama", llama_mod, llama_mod.LlamaConfig.llama_125m(),
-        llama_mod.Llama,
+    llama = timed(
+        "engine_llama", phase_engine, "llama", llama_mod,
+        llama_mod.LlamaConfig.llama_125m(), llama_mod.Llama,
         buckets=LLAMA_BUCKETS,
         prompt_lens=[9, 150, 69, 94, 1500], max_new=16, seed=2)
     # the GPT-2 engine phase's weights, prompts and lengths, speculating
-    spec = phase_engine_spec(gpt_mod.GPTConfig.gpt2_125m(), GPT_BUCKETS,
-                             GPT_PROMPT_LENS, max_new=32, seed=1)
+    spec = timed("engine_spec", phase_engine_spec,
+                 gpt_mod.GPTConfig.gpt2_125m(), GPT_BUCKETS,
+                 GPT_PROMPT_LENS, max_new=32, seed=1)
     # the port's runtime: the GPT-2 engine phase's model from a GPU actor
-    runtime = phase_runtime(gpt)
+    runtime = timed("runtime", phase_runtime, gpt)
     # Serve: the GPT-2 engine phase's model from a GPU replica
-    serve_row = phase_serve(gpt)
+    serve_row = timed("serve", phase_serve, gpt)
     # the cluster phase's reference: the `gpt` phase's tokens and gaps
     gpt_ref = dict(tokens=gpt["tokens"], gaps=gpt["gaps"])
     for row in (gpt, llama):  # the later phases' references, not results
@@ -6298,45 +6413,52 @@ def main() -> int:
     # the distributed train plane: the `train` phase's model, weights and
     # batch in a TorchTrainer's GPU worker, a rank killed and replaced
     k1, k4 = train["graphed"]["k1"], train["graphed"]["k4"]
-    train_dist = phase_train_dist(k1["losses"],
-                                  (k1["step_ms"], k4["step_ms"]))
+    train_dist = timed("train_dist", phase_train_dist, k1["losses"],
+                       (k1["step_ms"], k4["step_ms"]))
     # the `train` cell fed from a streaming Dataset through a TorchTrainer
-    train_data = phase_train_data((k1["step_ms"], k4["step_ms"]))
+    train_data = timed("train_data", phase_train_data,
+                       (k1["step_ms"], k4["step_ms"]))
     # the compiled DAG: a fused chain as one graph, an actor graph
-    dag = phase_dag()
+    dag = timed("dag", phase_dag)
     # the soak: runtime, Data, train plane, chaos and ledger (on the CPU)
-    soak = phase_soak()
+    soak = timed("soak", phase_soak)
     # the cluster tooling: a submitted job's workflow step on a GPU node
     # that the autoscaler launches for it and retires once idle
-    cluster = phase_cluster(gpt_ref)
+    cluster = timed("cluster", phase_cluster, gpt_ref)
     # the operator surface: the CLI's verbs, a client:// driver, GPT-2
     # deployed by `serve-deploy`, the dashboard
-    operator = phase_operator(gpt_ref)
+    operator = timed("operator", phase_operator, gpt_ref)
     # parallel/: the `train` cell through a sharded step on a mesh, in a
     # TorchTrainer gang (NCCL), then two ranks on the card over gloo
-    parallel = phase_parallel(k1["losses"], (k1["step_ms"], k4["step_ms"]))
+    parallel = timed("parallel", phase_parallel, k1["losses"],
+                     (k1["step_ms"], k4["step_ms"]))
     # ... and `train_llama`'s Llama the same way in a one-rank gang
     lk1, lk4 = train_llama["graphed"]["k1"], train_llama["graphed"]["k4"]
-    parallel["llama"] = parallel_gang(
-        lk1["losses"], (lk1["step_ms"], lk4["step_ms"]), model="llama_125m",
+    parallel["llama"] = timed(
+        "parallel_llama", parallel_gang, lk1["losses"],
+        (lk1["step_ms"], lk4["step_ms"]), model="llama_125m",
         family="llama")
     # ... and `train`'s GPT-2 at dropout 0.1, graphed against eager
-    parallel["dropout"] = dropout_row(train["losses"])
+    parallel["dropout"] = timed("parallel_dropout", dropout_row,
+                                train["losses"])
     # the other model families at their published widths, eager and graphed
-    models = phase_models()
+    models = timed("models", phase_models)
     # ... and sharded over two gloo ranks on the card: Llama, MoE-GPT at
-    # tp=2 and sp=2, ViT-B/16 and ResNet-50 at fsdp=2
-    family = family_pairs(dict(
+    # tp=2 and sp=2, ViT-B/16 and ResNet-50 at fsdp=2, ViT-B/16 at sp=2
+    family = timed("models_pairs", family_pairs, dict(
         llama=train_llama["losses"],
         **{name: models[name]["eager_losses"]
            for name in ("moe_gpt", "vit", "resnet50")}))
     # RLlib: PPO's learner on the card as graphs, env runners as actors
-    rllib = phase_rllib()
+    rllib = timed("rllib", phase_rllib)
+    # the port's `__graft_entry__.py`: GPT-2's forward, the multichip dry
+    # run on one chip
+    dry = timed("dryrun", phase_dryrun)
 
     kernels = kernels_line(rows, bwd_rows, train, train_llama, train_long,
                            gpt, llama, spec, runtime, serve_row, train_dist,
                            train_data, dag, cluster, operator, parallel,
-                           models, family, ptxas)
+                           models, family, dry, ptxas)
     print(json.dumps({"build_s": build_s, "train": train,
                       "train_llama": train_llama, "train_long": train_long,
                       "engines": [gpt, llama], "engine_spec": spec,
@@ -6345,10 +6467,12 @@ def main() -> int:
                       "dag": dag, "soak": soak, "cluster": cluster,
                       "operator": operator, "parallel": parallel,
                       "models": models, "models_pairs": family,
-                      "rllib": rllib}))
+                      "rllib": rllib, "dryrun": dry},
+                     default=lambda a: np.asarray(a).tolist()))
     print(json.dumps({"kernels": kernels}))
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
-          f"{build_s:.1f} s of it")
+          f"{build_s:.1f} s of it; by phase "
+          f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

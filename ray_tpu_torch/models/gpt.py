@@ -37,10 +37,14 @@ a JAX `shard_map` body of the GSPMD program: FSDP's `embed` shards
 gathered at use (their gradients reduce-scattered back), Megatron column
 and row splits over `tp` (`mlp_up`/`mlp_down`, `attn_out`, the fused qkv
 gathered and sliced to this rank's heads, the vocab-parallel embedding
-and loss), and the sequence over `sp` through Ulysses around the
-attention. The attention is the model's `attention_fn` (the flash
-kernel) on this rank's heads. Dropout there draws the global mask on
-every rank and keeps the rank's block (`_Spmd.dropout_keep`).
+and loss), and the sequence over `sp`. The attention is the model's
+`attention_fn` (the flash kernel) on this rank's heads, through Ulysses
+where sp divides them; where it does not, on the whole sequence of the
+rank's heads, gathered over sp (as GSPMD runs dense attention on a split
+sequence), each rank keeping its rows. A sequence that sp does not divide
+(ViT's 197 tokens) is padded at its end, as GSPMD pads it, and its pad
+keys are masked. Dropout there draws the global mask on every rank and
+keeps the rank's block (`_Spmd.dropout_keep`).
 """
 
 from __future__ import annotations
@@ -420,14 +424,27 @@ class _Spmd:
     h // (n_head / n_kv_head); a kv head that several ranks' query heads
     read is held by each of them). `qkv_rows` are the rows of the fused
     qkv ([n_head + 2 n_kv_head heads, d], the JAX layout) of those heads.
-    Without a `cfg` (a model without heads) only the mesh's part."""
+    Without a `cfg` (a model without heads) only the mesh's part.
 
-    def __init__(self, mesh, shardings, cfg=None):
+    `seq_len` is the global sequence's length where the model makes the
+    sequence itself (ViT's patches); None where the caller split the
+    tokens evenly over sp. A length that sp does not divide is padded at
+    its end to `t_local * sp` rows, `t_local` a rank (`seq_block`), and
+    `key_valid` [t_local * sp] marks the real keys (None: no padding)."""
+
+    def __init__(self, mesh, shardings, cfg=None, seq_len=None):
         self.mesh, self.shardings = mesh, shardings
         self.tp = mesh.axis_size("tp")
         self.tp_rank = mesh.axis_index("tp")
         self.sp = mesh.axis_size("sp")
         self.sp_rank = mesh.axis_index("sp")
+        self.seq_len, self.key_valid = seq_len, None
+        if seq_len is not None:
+            self.t_local = -(-seq_len // self.sp)
+            padded = self.t_local * self.sp
+            if padded != seq_len:
+                self.key_valid = torch.arange(
+                    padded, device=mesh.device_type) < seq_len
         self.data_axes = tuple(a for a in DATA_AXES if a in mesh.shape)
         # the axes that split the batch (the others of the data axes, sp,
         # split the sequence)
@@ -445,11 +462,6 @@ class _Spmd:
             raise ValueError(f"{name}: {n_head} heads do not split over "
                              f"tp={self.tp}")
         self.heads = n_head // self.tp
-        if self.heads % self.sp:
-            raise ValueError(
-                f"{name}: sequence parallelism runs Ulysses over this "
-                f"rank's {self.heads} heads, which sp={self.sp} does not "
-                f"divide")
         if n_kv % self.tp and self.tp % n_kv:
             raise ValueError(f"{name}: {n_kv} kv heads and tp={self.tp}: "
                              f"neither divides the other")
@@ -535,26 +547,54 @@ class _Spmd:
                      for y in (q, k, v))
 
     def attend(self, fn, q, k, v):
+        """This rank's query block [B_l, T_l, heads, hd] attended over the
+        whole sequence by `fn` (the model's attention: the flash kernel
+        in the decoders). Over sp, Ulysses where sp divides the rank's
+        query heads (`fn` on a subset of them over the whole sequence);
+        where it does not, q, k and v are gathered over sp, `fn` attends
+        the whole sequence of the rank's heads, and the rank keeps its
+        rows (the gather's backward reduce-scatters the gradients). A
+        padded sequence's `key_valid` goes to `fn`."""
         if self.sp == 1:
             return fn(q, k, v)
+        kw = {} if self.key_valid is None else {"key_valid": self.key_valid}
+        if self.heads % self.sp:
+            t_local = q.shape[1]
+            out = fn(*(collectives.allgather(y, "sp", gather_dim=1,
+                                             mesh=self.mesh)
+                       for y in (q, k, v)), **kw)
+            return out.narrow(1, self.sp_rank * t_local, t_local)
         if k.shape[2] % self.sp:
             # Ulysses splits the kv heads over sp: where sp does not
             # divide them, each query head's kv head is repeated first
             k, v = expand_kv_heads(q, k, v)
-        return ulysses_local(q, k, v, mesh=self.mesh, attention_fn=fn)
+        return ulysses_local(q, k, v, mesh=self.mesh, attention_fn=fn, **kw)
+
+    def seq_block(self, x):
+        """This rank's `t_local` rows of the global sequence x [B, T, ...]
+        (`seq_len` rows), padded with zeros at its end."""
+        pad = self.t_local * self.sp - x.shape[1]
+        if pad:
+            x = torch.cat([x, x.new_zeros((x.shape[0], pad,
+                                           *x.shape[2:]))], dim=1)
+        return x.narrow(1, self.sp_rank * self.t_local, self.t_local)
 
     def dropout_keep(self, shape, rate: float, generator, device):
         """This rank's block of the dropout mask of the global activation
         whose local block has `shape` [B_l, T_l, ...]: every rank draws
         the global mask from the same generator state (as the JAX package
         draws the global array's bits whatever the mesh), so a sharded
-        step drops what the unsharded one does."""
+        step drops what the unsharded one does. A padded sequence's mask
+        is drawn at its `seq_len` rows, then padded (`seq_block`)."""
         nb = self.mesh.axis_size(self.batch_axes)
-        whole = dropout_keep((shape[0] * nb, shape[1] * self.sp,
-                              *shape[2:]), rate, generator, device)
+        t = shape[1] * self.sp if self.seq_len is None else self.seq_len
+        whole = dropout_keep((shape[0] * nb, t, *shape[2:]), rate,
+                             generator, device)
         bi = self.mesh.axis_index(self.batch_axes)
-        return whole.narrow(0, bi * shape[0], shape[0]).narrow(
-            1, self.sp_rank * shape[1], shape[1])
+        whole = whole.narrow(0, bi * shape[0], shape[0])
+        if self.seq_len is not None:
+            return self.seq_block(whole)
+        return whole.narrow(1, self.sp_rank * shape[1], shape[1])
 
 
 def _block_param(blk, spmd: _Spmd, prefix: str, name: str, keep=("tp",)):
@@ -684,7 +724,15 @@ def sharded_class_loss(logits, labels, spmd: _Spmd):
     (f32) are this rank's rows and its classes of a vocab-parallel head
     (`("embed", "vocab")`), whose input the caller marks tp-replicated.
     The row max and the sum of exponentials are all-reduced over tp, and
-    so is the label's logit (the rank holding its class gives it)."""
+    so is the label's logit (the rank holding its class gives it). Over
+    sp the logits are sp rank 0's (the class token's row lives there):
+    the other sp ranks' shares are 0, through their logits, so that
+    their backward runs the same collectives."""
+    loss = _class_loss(logits, labels, spmd)
+    return loss if spmd.sp_rank == 0 else loss * 0.0
+
+
+def _class_loss(logits, labels, spmd: _Spmd):
     mesh = spmd.mesh
     n = logits.shape[0] * mesh.axis_size(spmd.batch_axes)
     if spmd.tp == 1:

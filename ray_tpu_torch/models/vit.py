@@ -15,9 +15,12 @@ the JAX reshape does. Parameter names follow the Flax tree
 (`encoder{i}.attn_qkv.weight`, `patchify.weight`, `cls`, `pos_embed`,
 `head.weight`).
 
-Sharded (`sharded_loss`) over the data axes, fsdp and tp, as GSPMD shards
-the annotated Flax model (`param_logical_axes`): the blocks as the
+Sharded (`sharded_loss`) over the data axes, fsdp, tp and sp, as GSPMD
+shards the annotated Flax model (`param_logical_axes`): the blocks as the
 decoders' (`gpt`'s sharded block), the class head vocab-parallel over tp.
+Over sp the 1 + patches tokens (197 at ViT-B/16, which no sp > 1
+divides) are padded at their end as GSPMD pads them, each rank holding
+its rows, and the attention masks the pad keys.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models.gpt import Dense, LayerNorm
+from ray_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,13 +90,16 @@ class EncoderBlock(nn.Module):
         model's einsums."""
         return self._attention
 
-    def _attention(self, q, k, v):
+    def _attention(self, q, k, v, key_valid=None):
         cfg = self.config
         # sqrt(hd) rounded to the activation dtype, as the JAX model takes
         # it; a host number, so that a captured step copies nothing
         scale = float(torch.sqrt(torch.tensor(q.shape[-1], dtype=cfg.dtype)))
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / scale
-        probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
+        scores = (torch.einsum("bqhd,bkhd->bhqk", q, k) / scale).float()
+        if key_valid is not None:
+            # the pad keys of a sequence padded over sp (`gpt._Spmd`)
+            scores = scores.masked_fill(~key_valid, float("-inf"))
+        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
         return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
     def forward(self, x, keep=None):
@@ -237,25 +244,27 @@ def sharded_hidden(model: ViT, images, mesh, shardings,
                    deterministic: bool = True,
                    generator: Optional[torch.Generator] = None):
     """The sharded forward up to `ln_f` on this rank's images [B / data
-    ranks, H, W, C]: (hidden [B_l, 1 + patches, D], its `gpt._Spmd`).
-    Over the data axes, fsdp (the `embed` shards gathered at use) and tp
-    (`gpt`'s sharded block on this rank's heads, with the JAX model's
-    plain attention); dropout from the global masks. ViT-B/16's 197 tokens
-    split over no sp > 1 (GSPMD pads them; the port does not), so a mesh
-    with sp raises."""
+    ranks, H, W, C] (under sp, as `shard_batch` places them, their rows
+    split over sp: gathered here): (hidden [B_l, T_l, D], its
+    `gpt._Spmd`). Over the data axes, fsdp (the `embed` shards gathered
+    at use), tp (`gpt`'s sharded block on this rank's heads, with the JAX
+    model's plain attention) and sp: the 1 + patches tokens padded with
+    zero rows at their end to T_l = ceil((1 + patches) / sp) a rank (the
+    class token's row first on sp rank 0; each rank's position
+    embeddings its rows'), the pad keys masked in the attention, the pad
+    rows never read by a real one. Dropout from the global masks."""
     cfg = model.config
-    spmd = gpt._Spmd(mesh, shardings, cfg)
-    if spmd.sp > 1:
-        raise ValueError(f"ViT: {cfg.num_patches + 1} tokens do not split "
-                         f"over sp={spmd.sp}; shard ViT over data axes, "
-                         f"fsdp and tp")
+    spmd = gpt._Spmd(mesh, shardings, cfg, seq_len=cfg.num_patches + 1)
+    if images.shape[1] < cfg.image_size:
+        images = collectives.allgather(images, "sp", gather_dim=1,
+                                       mesh=mesh)
     param = partial(spmd.param, dtype=cfg.dtype)
     x = _embed(cfg, images,
                *(param(n, p) for n, p in (
                    ("patchify.weight", model.patchify.weight),
                    ("patchify.bias", model.patchify.bias),
                    ("cls", model.cls), ("pos_embed", model.pos_embed))))
-    x = spmd.constrain(x, ("batch", "seq", "embed"))
+    x = spmd.constrain(spmd.seq_block(x), ("batch", "seq", "embed"))
     x = gpt.sharded_blocks(model, spmd, x, gpt._sharded_block, deterministic,
                            generator)
     return model.ln_f(x), spmd
@@ -266,8 +275,9 @@ def sharded_loss(model: ViT, images, labels, mesh, shardings,
                  generator: Optional[torch.Generator] = None):
     """This rank's share of the global batch's mean softmax cross-entropy
     of the class logits (`gpt.global_loss` sums the shares,
-    `gpt.reduce_gradients` completes the gradients): the head is
-    vocab-parallel over tp (`gpt.sharded_class_loss`)."""
+    `gpt.reduce_gradients` completes the gradients, over sp too): the
+    head is vocab-parallel over tp and reads the class token's row on sp
+    rank 0 (`gpt.sharded_class_loss`)."""
     hidden, spmd = sharded_hidden(model, images, mesh, shardings,
                                   deterministic, generator)
     dt = model.config.dtype

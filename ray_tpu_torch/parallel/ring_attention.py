@@ -37,19 +37,15 @@ NEG_INF = -1e30
 
 
 def _block_attend(q, k, v, q_offset: int, kv_offset: int, causal: bool,
-                  scale: float):
+                  scale: float, key_valid=None):
     """Attend a q-block to one kv-block, returning unnormalized partials.
+    `key_valid` [Tkv] (None: every key) masks the block's pad keys.
 
     q: [B, Tq, H, D], k/v: [B, Tkv, H, D] ->
     (out [B, Tq, H, D], row_max [B, H, Tq], row_sum [B, H, Tq])
     """
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    if causal:
-        tq, tk = q.shape[1], k.shape[1]
-        q_pos = q_offset + torch.arange(tq, device=q.device)[:, None]
-        k_pos = kv_offset + torch.arange(tk, device=q.device)[None, :]
-        mask = q_pos >= k_pos
-        logits = torch.where(mask[None, None], logits, NEG_INF)
+    logits = _masked_logits(q, k, q_offset, kv_offset, causal, scale,
+                            key_valid)
     row_max = torch.amax(logits, dim=-1)
     p = torch.exp(logits - row_max[..., None])
     row_sum = torch.sum(p, dim=-1)
@@ -70,12 +66,13 @@ def expand_kv_heads(q, k, v):
 
 
 def full_attention(q, k, v, *, causal: bool = True,
-                   scale: Optional[float] = None):
-    """Dense (unsharded) softmax attention."""
+                   scale: Optional[float] = None, key_valid=None):
+    """Dense (unsharded) softmax attention; `key_valid` [T] (None: every
+    key) masks pad keys."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     k, v = expand_kv_heads(q, k, v)
-    out, _, row_sum = _block_attend(q, k, v, 0, 0, causal, scale)
+    out, _, row_sum = _block_attend(q, k, v, 0, 0, causal, scale, key_valid)
     return out / torch.clamp(row_sum, min=1e-20).transpose(1, 2)[..., None]
 
 
@@ -95,12 +92,18 @@ def _expand_grad(g, h_kv: int):
     return g.reshape(b, t, h_kv, h // h_kv, d).sum(3)
 
 
-def _causal_logits(q, k, q_offset, kv_offset, causal, scale):
+def _masked_logits(q, k, q_offset, kv_offset, causal, scale,
+                   key_valid=None):
+    """The scaled scores [B, H, Tq, Tkv] of a q-block against a kv-block
+    at their global offsets: future keys (`causal`) and pad keys (False
+    in `key_valid` [Tkv]) at NEG_INF."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if causal:
         q_pos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
         k_pos = kv_offset + torch.arange(k.shape[1], device=q.device)[None]
         logits = torch.where((q_pos >= k_pos)[None, None], logits, NEG_INF)
+    if key_valid is not None:
+        logits = torch.where(key_valid[None, None, None], logits, NEG_INF)
     return logits
 
 
@@ -165,7 +168,7 @@ class _RingAttention(torch.autograd.Function):
             if not causal or q_offset + tq - 1 >= kv_offset:
                 k_e, v_e = (x.float() for x in
                             expand_kv_heads(q, k_blk, v_blk))
-                p = torch.exp(_causal_logits(q32, k_e, q_offset, kv_offset,
+                p = torch.exp(_masked_logits(q32, k_e, q_offset, kv_offset,
                                              causal, scale)
                               - lse[..., None])
                 dv_blk = dv_blk + _expand_grad(
@@ -267,19 +270,22 @@ def ulysses_attention(
 
 def ulysses_local(q, k, v, *, mesh, axis_name: str = "sp",
                   causal: bool = True, scale: Optional[float] = None,
-                  attention_fn: Optional[Callable] = None):
+                  attention_fn: Optional[Callable] = None, key_valid=None):
     """Ulysses' per-rank body on local blocks [B, T/sp, H, D]: all_to_all
     to [B, T, H/sp, D], attend, all_to_all back. `attention_fn(q, k, v)`
     (default `full_attention` with `causal` and `scale`) is the per-rank
-    attention: the sharded GPT passes its own (the flash kernel)."""
+    attention: the sharded GPT passes its own (the flash kernel). A
+    padded sequence's `key_valid` [T] (False on its pad keys) goes to the
+    attention as its `key_valid` argument."""
     def swap(x):
         return collectives.all_to_all(x, axis_name, split_dim=2,
                                       concat_dim=1, mesh=mesh)
 
     if attention_fn is None:
         out = full_attention(swap(q), swap(k), swap(v), causal=causal,
-                             scale=scale)
+                             scale=scale, key_valid=key_valid)
     else:
-        out = attention_fn(swap(q), swap(k), swap(v))
+        kw = {} if key_valid is None else {"key_valid": key_valid}
+        out = attention_fn(swap(q), swap(k), swap(v), **kw)
     return collectives.all_to_all(out, axis_name, split_dim=1,
                                   concat_dim=2, mesh=mesh)

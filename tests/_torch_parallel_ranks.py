@@ -29,6 +29,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ray_tpu_torch.dryrun import pick_strategy
+
 ROOT = Path(__file__).resolve().parent.parent
 
 
@@ -116,20 +118,6 @@ def gpt_tokens(batch=4, seq=32, seed=11):
     rng = np.random.default_rng(seed)
     return rng.integers(0, GPT_CFG["vocab_size"], (batch, seq + 1),
                         dtype=np.int64).astype(np.int32)
-
-
-def pick_strategy(n_devices: int):
-    """`__graft_entry__._pick_strategy`: peel factors of two onto fsdp, tp,
-    sp; the rest is dp."""
-    from ray_tpu_torch.parallel import ShardingStrategy
-
-    axes = {"fsdp": 1, "tp": 1, "sp": 1}
-    rem = n_devices
-    for name in ("fsdp", "tp", "sp"):
-        if rem % 2 == 0:
-            axes[name] = 2
-            rem //= 2
-    return ShardingStrategy(dp=rem, **axes)
 
 
 # -- scenarios (every rank runs each; rank 0's return value is kept) ----------
@@ -755,7 +743,10 @@ def sc_llama_sharded(inputs):
     return out
 
 
-MOE_STRATEGIES = {"tp2_ep2": dict(tp=2, ep=2), "dp2_sp2": dict(dp=2, sp=2)}
+# tp=2 sp=2 leaves each tp rank one of the two heads, which sp does not
+# divide: the gather path
+MOE_STRATEGIES = {"tp2_ep2": dict(tp=2, ep=2), "dp2_sp2": dict(dp=2, sp=2),
+                  "tp2_sp2": dict(tp=2, sp=2)}
 
 
 def moe_sp_tokens():
@@ -891,8 +882,8 @@ def vit_batch():
 
 
 def sc_vit_sharded(inputs):
-    """The tiny ViT at dp=2 tp=2: two AdamW steps' global losses; and a
-    mesh with sp refused."""
+    """The tiny ViT at dp=2 tp=2: two AdamW steps' global losses; and its
+    forward at dp=2 sp=2 (17 tokens, 9 rows a rank)."""
     import torch
 
     from ray_tpu_torch.models import convert, vit
@@ -910,17 +901,135 @@ def sc_vit_sharded(inputs):
     losses = _sharded_steps(
         lambda: vit.sharded_loss(model, x, y, mesh, shardings), params,
         mesh, shardings, VIT_LR)
-    _, sp_mesh, sp_shardings, sp_placed = _placed(
+    sp_strategy, sp_mesh, sp_shardings, sp_placed = _placed(
         vit, convert.vit_params_from_jax, inputs["vit_tree"], cfg,
         dict(dp=2, sp=2))
-    try:
-        vit.sharded_hidden(vit.ViT.from_params(cfg, sp_placed), x, sp_mesh,
-                           sp_shardings)
-        refused = None
-    except ValueError as e:
-        refused = str(e)
-    return {"losses": losses, "mesh": mesh.shape, "sp_refused": refused,
+    sp_x = shard_batch({"x": imgs}, sp_mesh, sp_strategy)["x"].to_local()
+    with torch.no_grad():
+        hidden, _ = vit.sharded_hidden(vit.ViT.from_params(cfg, sp_placed),
+                                       sp_x, sp_mesh, sp_shardings)
+    return {"losses": losses, "mesh": mesh.shape,
+            "sp_hidden": (tuple(hidden.shape),
+                          bool(torch.isfinite(hidden).all())),
             "local_head": tuple(params["head.weight"].shape)}
+
+
+# the tiny ViT (17 tokens) over sp: Ulysses on its 4 heads (the sequence
+# padded to 18 or 20 rows); VIT_GATHER_CFG's 2 heads at sp=4 are gathered
+VIT_SP_STRATEGIES = {"dp2_sp2": dict(dp=2, sp=2), "tp2_sp2": dict(tp=2, sp=2),
+                     "sp4": dict(sp=4)}
+VIT_GATHER_CFG = dict(image_size=32, patch_size=8, num_classes=10,
+                      n_layer=2, n_head=2, d_model=64)
+
+
+def _vit_steps(cfg, tree, axes, **kw):
+    """Two AdamW steps of the tiny ViT at `axes`: (global losses, this
+    rank's hidden shape, its `_Spmd`)."""
+    import torch
+
+    from ray_tpu_torch.models import convert, vit
+    from ray_tpu_torch.parallel import shard_batch
+
+    strategy, mesh, shardings, placed = _placed(
+        vit, convert.vit_params_from_jax, tree, cfg, axes)
+    model = vit.ViT.from_params(cfg, placed, trainable=True)
+    imgs, labels = vit_batch()
+    batch = shard_batch({"x": imgs, "y": labels}, mesh, strategy)
+    x, y = batch["x"].to_local(), batch["y"].to_local().long()
+    with torch.no_grad():
+        hidden, spmd = vit.sharded_hidden(model, x, mesh, shardings)
+    losses = _sharded_steps(
+        lambda: vit.sharded_loss(model, x, y, mesh, shardings, **kw),
+        dict(model.named_parameters()), mesh, shardings, VIT_LR)
+    return losses, tuple(hidden.shape), spmd
+
+
+def sc_vit_sp(inputs):
+    """The tiny ViT over sp: two AdamW steps' global losses at each of
+    `VIT_SP_STRATEGIES` and, with 2 heads, at sp=4 (the gather); and at
+    dropout 0.1 (dp=2 sp=2) two sharded steps beside two unsharded ones
+    from a generator in the same state."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.models import convert, vit
+
+    cfg = vit.ViTConfig.tiny(dtype=torch.float32, remat=False)
+    out = {}
+    for name, axes in VIT_SP_STRATEGIES.items():
+        losses, local, spmd = _vit_steps(cfg, inputs["vit_tree"], axes)
+        out[name] = {"losses": losses, "local": local,
+                     "gather": spmd.heads % spmd.sp != 0}
+    rcfg = vit.ViTConfig(dtype=torch.float32, remat=False, **VIT_GATHER_CFG)
+    losses, local, spmd = _vit_steps(rcfg, inputs["vit_gather_tree"],
+                                     dict(sp=4))
+    out["gather_sp4"] = {"losses": losses, "local": local,
+                       "gather": spmd.heads % spmd.sp != 0}
+
+    def gen():
+        return torch.Generator().manual_seed(DROPOUT_SEED)
+
+    dcfg = vit.ViTConfig.tiny(dtype=torch.float32, remat=False,
+                              dropout=DROPOUT)
+    sharded, _, _ = _vit_steps(dcfg, inputs["vit_tree"], dict(dp=2, sp=2),
+                               deterministic=False, generator=gen())
+    plain = vit.ViT.from_params(dcfg, convert.vit_params_from_jax(
+        inputs["vit_tree"], dcfg, device="cpu", dtype=torch.float32),
+        trainable=True)
+    opt, g = _adamw(plain.parameters(), VIT_LR), gen()
+    imgs, labels = (torch.from_numpy(a) for a in vit_batch())
+    unsharded = []
+    for _ in range(2):
+        loss = F.cross_entropy(plain(imgs, deterministic=False, generator=g),
+                               labels.long())
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        unsharded.append(float(loss))
+    out["dropout"] = {"sharded": sharded, "unsharded": unsharded}
+    return out
+
+
+# the gather path in the decoders: sp does not divide a rank's query heads
+# (the tiny GPT's 2 heads at tp=2 sp=2; a 2-head, 1-kv-head Llama at sp=4,
+# its kv head repeated for both query heads)
+GATHER_LLAMA_CFG = dict(n_layer=2, n_head=2, n_kv_head=1, d_model=64,
+                        vocab_size=512, max_seq_len=128)
+
+
+def sc_gather_sharded(inputs):
+    """Two AdamW steps' global losses of the tiny GPT at tp=2 sp=2 and of
+    `GATHER_LLAMA_CFG`'s Llama at sp=4, each rank's query heads not a
+    multiple of sp."""
+    import torch
+
+    from ray_tpu_torch.models import convert, gpt, llama
+    from ray_tpu_torch.parallel import shard_batch
+
+    out = {}
+    for name, family, net_cls, convert_fn, cfg, tree, toks, axes in (
+            ("gpt_tp2_sp2", gpt, gpt.GPT, convert.gpt_params_from_jax,
+             gpt.GPTConfig.tiny(dtype=torch.float32, remat=False),
+             inputs["gpt_gather_tree"], gpt_tokens(), dict(tp=2, sp=2)),
+            ("llama_sp4", llama, llama.Llama, convert.llama_params_from_jax,
+             llama.LlamaConfig(dtype=torch.float32, remat=False,
+                               **GATHER_LLAMA_CFG),
+             inputs["llama_gather_tree"], llama_tokens(), dict(sp=4))):
+        strategy, mesh, shardings, placed = _placed(
+            family, convert_fn, tree, cfg, axes)
+        model = net_cls.from_params(cfg, placed, trainable=True)
+        batch = shard_batch({"x": toks[:, :-1], "y": toks[:, 1:]}, mesh,
+                            strategy)
+        x, y = (batch[k].to_local().long() for k in ("x", "y"))
+        spmd = gpt._Spmd(mesh, shardings, cfg)
+        losses = _sharded_steps(
+            lambda: family.sharded_loss(model, x, y, mesh, shardings),
+            dict(model.named_parameters()), mesh, shardings, GPT_LR)
+        out[name] = {"losses": losses, "mesh": mesh.shape,
+                     "heads": (spmd.heads, spmd.kv_heads),
+                     "gather": spmd.heads % spmd.sp != 0,
+                     "local_tokens": tuple(x.shape)}
+    return out
 
 
 RESNET_LR = 1e-3
@@ -978,7 +1087,7 @@ GANGS = {
     "ckpt": [sc_ckpt_save, sc_ckpt_restore],
     "llama": [sc_llama_sharded],
     "zoo_more": [sc_moe_tp_sp, sc_dropout_sharded, sc_vit_sharded,
-                 sc_resnet_sharded],
+                 sc_resnet_sharded, sc_vit_sp, sc_gather_sharded],
 }
 
 

@@ -23,7 +23,9 @@ step of the tiny GPT through `TrainStepRunner(mesh=)` against the same
 step without a mesh, two gloo ranks sharing the card at tp=2), and the
 other model families (BERT's non-causal kernel shape; a graphed MoE-GPT
 and ResNet train step against eager), and RLlib (a graphed SAC learner
-update against an eager twin).
+update against an eager twin), and the multichip dry run (`dryrun.entry`'s
+GPT-2 forward against the plain attention; `dryrun_multichip` on one
+card, and refused for more ranks than cards).
 
 Every test here needs an NVIDIA GPU and `nvcc` and skips without them.
 On a machine with a card (and no JAX), run them with
@@ -1672,3 +1674,38 @@ def test_rllib_graphed_update_matches_eager(cuda):
     chip_smoke._rl_compare(name, graphed, eager, batches)
     assert graphed.cache.stats.as_dict() == {
         "hits": len(batches) - 1, "misses": 1, "retraces": 0}
+
+
+def test_dryrun_entry_matches_plain_attention(cuda):
+    """`dryrun.entry()`: GPT-2 125M's forward on 128 tokens through the
+    flash kernel (12 launches), its bf16 logits within `chip_smoke`'s
+    LOGIT_ATOL (0.1) of the same weights' forward with the plain
+    attention."""
+    from ray_tpu_torch import dryrun
+    from ray_tpu_torch.models import gpt
+
+    fn, (params, tokens) = dryrun.entry()
+    flash_attention.launches = 0
+    got = fn(params, tokens)
+    assert flash_attention.launches == 12
+    with torch.no_grad():
+        want = gpt.GPT.from_params(gpt.GPTConfig.gpt2_125m(remat=False),
+                                   params)(tokens)
+    assert got.shape == (1, 128, 50304)
+    assert float((got.float() - want.float()).abs().max()) <= 0.1
+
+
+def test_dryrun_multichip_on_one_card(cuda):
+    """`dryrun_multichip(1)`: one NCCL rank; the tiny GPT's step on the
+    flash kernels (2 layers: 2 forward, 4 backward launches), the
+    checkpoint bit for bit, MoE-GPT at ep=1; more ranks than cards are
+    refused."""
+    from ray_tpu_torch import dryrun
+
+    got = dryrun.dryrun_multichip(1)
+    assert (got["gpt"]["fwd_launches"], got["gpt"]["bwd_launches"]) == \
+        (2, 2 * BWD_KERNELS_PER_CALL)
+    assert got["ckpt"]["bitwise"] and np.isfinite(got["ep"]["loss"])
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match=f"{n} ranks need {n} cards"):
+        dryrun.dryrun_multichip(n)

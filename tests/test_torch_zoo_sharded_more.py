@@ -1,5 +1,6 @@
 """More sharded steps of the model families against the JAX package:
-MoE-GPT over tp and sp, dropout in the sharded forwards, ViT and ResNet.
+MoE-GPT over tp and sp, dropout in the sharded forwards, ViT and ResNet,
+ViT over sp and the decoders' gather path.
 
 The port side runs in a gloo gang of 4 CPU ranks
 (`_torch_parallel_ranks.py`, gang "zoo_more"), the JAX side here on 4 of
@@ -8,11 +9,13 @@ every model in f32 without remat, every AdamW step `torch.optim.AdamW`
 against `optax.adamw(lr)`:
 
 * MoE-GPT tiny at tp=2 ep=2 (the experts' hidden width split over tp, a
-  tp all-reduce of their outputs) and at dp=2 sp=2 (Ulysses attention;
+  tp all-reduce of their outputs), at dp=2 sp=2 (Ulysses attention;
   each token's slot in its expert's buffer from the global (b, t) order,
-  the earlier sp blocks of its row included): two steps' losses against
-  the JAX GSPMD steps at the same strategy (rtol 1e-5), and the layers'
-  aux loss summed over the data and sp axes against the JAX value.
+  the earlier sp blocks of its row included) and at tp=2 sp=2 (one head
+  a tp rank, which sp does not divide: the gather path): two steps' losses
+  against the JAX GSPMD steps at the same strategy (rtol 1e-5), and the
+  layers' aux loss summed over the data and sp axes against the JAX
+  value.
 * Dropout (p = 0.1, `deterministic=False`): GPT's sharded forward at tp=2
   sp=2 and BERT's at dp=2 tp=2 equal the unsharded forwards from a
   generator in the same state (f32 atol 1e-5): each rank draws the global
@@ -26,8 +29,18 @@ against `optax.adamw(lr)`:
   losses against the JAX GSPMD steps (rtol 1e-5); ResNet's running
   statistics after the first step are the same on every rank and equal
   the JAX batch_stats update (atol 1e-6, as `test_torch_models_zoo.py`
-  holds one step's statistics). A mesh with sp > 1 is refused for ViT
-  (197 tokens at ViT-B/16 split over no sp > 1).
+  holds one step's statistics). ViT's forward runs at dp=2 sp=2.
+* ViT tiny (17 tokens, which sp = 2 or 4 does not divide: padded to 18
+  or 20 rows, the pad keys masked) at dp=2 sp=2, tp=2 sp=2 and sp=4
+  (Ulysses), and with 2 heads at sp=4 (the gather): two steps' losses
+  against the JAX GSPMD steps at the same axes (rtol 1e-5); at dropout
+  0.1 and dp=2 sp=2 two sharded steps against two unsharded ones from a
+  generator in the same state (rtol 1e-5).
+* The gather path in the decoders, where sp does not divide a rank's
+  query heads (the sequence of its heads gathered over sp): the tiny
+  GPT (2 heads, as the multichip dry run runs it) at tp=2 sp=2 and a
+  2-query-head, 1-kv-head Llama at sp=4: two steps' losses against the
+  JAX GSPMD steps (rtol 1e-5).
 """
 
 import numpy as np
@@ -100,11 +113,27 @@ def both(tmp_path_factory):
     rimgs, rlabels = (jnp.asarray(a) for a in ranks.resnet_batch())
     variables = jax.jit(net.init, static_argnames="train")(
         jax.random.PRNGKey(0), rimgs, train=False)
+    vrcfg = jm.ViTConfig(dtype=jnp.float32, remat=False,
+                         **ranks.VIT_GATHER_CFG)
+    vgather = jm.ViT(vrcfg)
+    vgather_params = vgather.init(jax.random.PRNGKey(2), imgs)["params"]
+    gather_toks = jnp.asarray(ranks.gpt_tokens())
+    ggather = jm.GPT(jm.GPTConfig.tiny(dtype=jnp.float32, remat=False))
+    ggather_params = ggather.init(jax.random.PRNGKey(3),
+                              gather_toks[:, :-1])["params"]
+    llama_toks = jnp.asarray(ranks.llama_tokens())
+    lgather = jm.Llama(jm.LlamaConfig(dtype=jnp.float32, remat=False,
+                                    **ranks.GATHER_LLAMA_CFG))
+    lgather_params = lgather.init(jax.random.PRNGKey(4),
+                              llama_toks[:, :-1])["params"]
     wait = ranks.start_gang(
         "zoo_more", 4, tmp_path_factory.mktemp("zoo_more"),
         {"moe_tree": _np_tree(moe_params), "gpt_tree": gpt_tree,
          "bert_tree": bert_tree, "vit_tree": _np_tree(vparams),
-         "resnet_vars": _np_tree(variables)})
+         "resnet_vars": _np_tree(variables),
+         "vit_gather_tree": _np_tree(vgather_params),
+         "gpt_gather_tree": _np_tree(ggather_params),
+         "llama_gather_tree": _np_tree(lgather_params)})
 
     out = {}
 
@@ -128,6 +157,30 @@ def both(tmp_path_factory):
 
     out["vit"] = dict(losses=_gspmd_steps(dict(dp=2, tp=2), vit_loss,
                                           vparams, ranks.VIT_LR)[0])
+
+    # ViT over sp (GSPMD pads the 17 tokens), and the gather path's models
+    def vgather_loss(p, _):
+        return _class_nll(vgather.apply({"params": p}, imgs), labels,
+                          vrcfg.num_classes), None
+
+    def lm_loss(model, toks):
+        def loss(p, _):
+            return cross_entropy_loss(model.apply({"params": p},
+                                                  toks[:, :-1]),
+                                      toks[:, 1:]), None
+        return loss
+
+    out["vit_sp"] = {
+        name: _gspmd_steps(axes, vit_loss, vparams, ranks.VIT_LR)[0]
+        for name, axes in ranks.VIT_SP_STRATEGIES.items()}
+    out["vit_sp"]["gather_sp4"] = _gspmd_steps(
+        dict(sp=4), vgather_loss, vgather_params, ranks.VIT_LR)[0]
+    out["gather"] = {
+        "gpt_tp2_sp2": _gspmd_steps(dict(tp=2, sp=2),
+                                    lm_loss(ggather, gather_toks),
+                                    ggather_params, ranks.GPT_LR)[0],
+        "llama_sp4": _gspmd_steps(dict(sp=4), lm_loss(lgather, llama_toks),
+                                  lgather_params, ranks.GPT_LR)[0]}
 
     # ResNet at dp=2 fsdp=2, its batch_stats carried
     def resnet_loss(p, stats):
@@ -155,7 +208,8 @@ def gang(both):
 
 # each strategy's mesh and a rank's experts_up [experts, d, 4d]
 MOE_LAYOUT = {"tp2_ep2": ({"tp": 2, "ep": 2}, (2, 64, 128)),
-              "dp2_sp2": ({"dp": 2, "sp": 2}, (4, 64, 256))}
+              "dp2_sp2": ({"dp": 2, "sp": 2}, (4, 64, 256)),
+              "tp2_sp2": ({"tp": 2, "sp": 2}, (4, 64, 128))}
 
 
 @pytest.mark.parametrize("strategy", sorted(ranks.MOE_STRATEGIES))
@@ -199,7 +253,45 @@ def test_vit_dp2_tp2_steps_match_jax(gang, jax_side):
     assert got["local_head"] == (5, 64)
     np.testing.assert_allclose(got["losses"], jax_side["vit"]["losses"],
                                rtol=1e-5)
-    assert "do not split over sp=2" in got["sp_refused"]
+    # sp now runs: 8 images over dp=2, 17 tokens padded to 9 rows a rank
+    assert got["sp_hidden"] == ((4, 9, 64), True)
+
+
+# each case's mesh and rows a rank: 17 tokens padded to 18 (sp=2) or 20
+# (sp=4); the 8 images split over dp
+VIT_SP_LAYOUT = {"dp2_sp2": ((4, 9, 64), False),
+                 "tp2_sp2": ((8, 9, 64), False),
+                 "sp4": ((8, 5, 64), False), "gather_sp4": ((8, 5, 64), True)}
+
+
+@pytest.mark.parametrize("strategy", sorted(VIT_SP_LAYOUT))
+def test_vit_sp_steps_match_jax(gang, jax_side, strategy):
+    got = gang["sc_vit_sp"][strategy]
+    assert (got["local"], got["gather"]) == VIT_SP_LAYOUT[strategy]
+    np.testing.assert_allclose(got["losses"],
+                               jax_side["vit_sp"][strategy], rtol=1e-5)
+    assert got["losses"][1] < got["losses"][0]
+
+
+def test_vit_sp_dropout_equals_unsharded(gang):
+    got = gang["sc_vit_sp"]["dropout"]
+    np.testing.assert_allclose(got["sharded"], got["unsharded"], rtol=1e-5)
+
+
+# the gather path: (mesh, (query heads, kv heads) a rank, this rank's tokens)
+GATHER_LAYOUT = {"gpt_tp2_sp2": ({"tp": 2, "sp": 2}, (1, 1), (4, 16)),
+               "llama_sp4": ({"sp": 4}, (2, 1), (8, 8))}
+
+
+@pytest.mark.parametrize("case", sorted(GATHER_LAYOUT))
+def test_gather_path_steps_match_jax(gang, jax_side, case):
+    got = gang["sc_gather_sharded"][case]
+    assert got["gather"]
+    assert (got["mesh"], got["heads"], got["local_tokens"]) == \
+        GATHER_LAYOUT[case]
+    np.testing.assert_allclose(got["losses"], jax_side["gather"][case],
+                               rtol=1e-5)
+    assert got["losses"][1] < got["losses"][0]
 
 
 def test_resnet_dp2_fsdp2_steps_and_stats_match_jax(gang, jax_side):

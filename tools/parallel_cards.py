@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""`chip_smoke.py` phase 16 (a) alone, on every visible card.
+"""`chip_smoke.py` phase 16 (a) alone, on every visible card; or the
+multichip dry run, or ViT-B/16 over tp and sp, on four.
 
     python3 tools/parallel_cards.py            # on a host with four cards
     python3 tools/parallel_cards.py llama      # Llama-125M instead
+    python3 tools/parallel_cards.py dryrun     # dryrun_multichip(4)
+    python3 tools/parallel_cards.py vit_sp     # ViT-B/16 at tp=2 sp=2
+    python3 tools/parallel_cards.py dryrun vit_sp   # both, one build
 
 Builds the kernels, then trains the `train` phase's GPT-2 125M (same seed,
 weights and batch; with `llama`, the `train_llama` phase's Llama-125M)
@@ -13,6 +17,13 @@ phase's losses on the same weights and batch (`REFS`, each from a whole
 smoke on NVIDIA H100 80GB HBM3, 700 W). Beside them, that run's `train`
 (`train_llama`) K=1 / K=4 step ms, printed beside the gang's. Prints the
 phase's line and its row as JSON.
+
+`dryrun` runs `ray_tpu_torch.dryrun`: `entry()` on card 0, then
+`dryrun_multichip(4)`, one NCCL rank a card (fsdp=2 tp=2; ep=4; a
+4-stage pipeline; dcn=2 x fsdp=2 on a hybrid mesh), each step held to
+one rank's value. `vit_sp` runs `chip_smoke.vit_sp_cards`: ViT-B/16 at
+B=64 on a tp=2 sp=2 mesh over NCCL, graphed at K=1, against the one-card
+unsharded graphed run of the same weights and batch in the same call.
 """
 
 import json
@@ -44,18 +55,36 @@ REFS = {"gpt": (ONE_RANK_LOSSES, REF_MS, "gpt2_125m"),
         "llama": (LLAMA_ONE_RANK_LOSSES, LLAMA_REF_MS, "llama_125m")}
 
 
+def dryrun():
+    from ray_tpu_torch import dryrun as dry
+
+    fn, args = dry.entry()
+    out = fn(*args)
+    print("entry ok:", tuple(out.shape), out.dtype, flush=True)
+    t0 = time.time()
+    row = dry.dryrun_multichip(4)
+    row["wall_s"] = time.time() - t0
+    return row
+
+
 def main(argv) -> int:
     import torch
 
-    family = argv[0] if argv else "gpt"
-    losses, ref_ms, model = REFS[family]
     t0 = time.time()
     print("card", chip_smoke.card_line(), torch.cuda.device_count(),
           flush=True)
     chip_smoke.phase_build()
-    row = chip_smoke.parallel_gang(losses, ref_ms, model=model,
-                                   family=family)
-    print("GANG", json.dumps(row, default=str), flush=True)
+    for mode in argv or ["gpt"]:  # several modes share one build
+        if mode == "dryrun":
+            row = dryrun()
+        elif mode == "vit_sp":
+            row = chip_smoke.vit_sp_cards()
+        else:
+            losses, ref_ms, model = REFS[mode]
+            row = chip_smoke.parallel_gang(losses, ref_ms, model=model,
+                                           family=mode)
+        print("ROW", mode, json.dumps(row, default=lambda a: getattr(
+            a, "tolist", lambda: str(a))()), flush=True)
     print("total", time.time() - t0, flush=True)
     return 0
 
