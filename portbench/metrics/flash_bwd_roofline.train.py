@@ -1,0 +1,20 @@
+"""The backward attention kernels' (dQ and dK/dV together) share of
+their roofline in a training step: the least time of a step's backward
+calls (`peaks.attention_bwd_bound` at the step's batch and length, once a
+layer) over their device time, by kernel name."""
+
+from portbench import peaks, profiler
+
+
+def read(ctx):
+    t = ctx["trace"]
+    if t is None:
+        return None
+    secs = t.seconds_where(profiler.is_flash_bwd) / ctx["profile_steps"]
+    if secs <= 0:
+        return None
+    s, tr = ctx["shape"], ctx["traffic"]
+    bound, _ = peaks.attention_bwd_bound(
+        tr["batch"], tr["seq"], s["n_head"], s["n_head"],
+        s["d_model"] // s["n_head"], "bfloat16", ctx["causal"])
+    return 100.0 * s["n_layer"] * bound / secs
