@@ -1189,9 +1189,10 @@ def _graphed_train(name, family, cfg, seed, batch, seq, k, flash, device,
           f"kernels/replay ({_whole(prof)}), flash fwd/bwd kernels per replay "
           f"{prof['flash_fwd_per_step']:.0f}/{prof['flash_bwd_per_step']:.0f};"
           f" step records of the timed runs, median: {split['total_ms']} ms "
-          f"a run = {split['host_dispatch_ms']} ms host dispatch (the call "
-          f"up to its return) + {split['device_execute_ms']} ms to the "
-          f"synchronize after it (card: {card_line()})")
+          f"a run (the host one run ahead: it waits for the run before), "
+          f"{split['host_dispatch_ms']} ms host dispatch (the call up to "
+          f"its return), {split['device_execute_ms']} ms device time "
+          f"(CUDA events around the call) (card: {card_line()})")
     return dict(k=k, runs=runs, steps=steps, losses=losses,
                 capture_s=capture_s, pool_gib=pool_gib,
                 reserved_before_gib=reserved0 / 2**30, step_ms=step_ms,

@@ -89,6 +89,11 @@ The global cache holds its entries until ``ExecutableCache.evict(fn)``
 or ``clear()``; a graph holds its static buffers and pool memory until
 then (the LLM engine evicts its step functions at shutdown).
 
+Each call runs in two spans (`util.tracing`): ``compiled_step.lookup``
+(the key and the cache; a miss's eager run and capture, under its
+``compiled_step.lower``) and ``compiled_step.replay`` (the copy-in and
+``graph.replay()``; on the CPU the eager call).
+
 ``fold_steps`` folds K steps of ``step_fn(carry, batch) -> (carry,
 aux)`` into one call over batches stacked on a leading axis
 (``stack_batches``): on the card the K-step loop is one graph, on the
@@ -625,9 +630,12 @@ def compiled_step(fn: Optional[Callable] = None, *,
                 pool=pool, on_retrace=on_retrace)
 
     def call(args, kwargs):
-        entry, leaves, out = use_cache.lookup(fn, args, kwargs, **opts)
+        with _tracing.span("compiled_step.lookup"):
+            entry, leaves, out = use_cache.lookup(fn, args, kwargs, **opts)
         if out is _NOT_RUN:
-            out = entry(args, kwargs, leaves)
+            # on the card: the copy-in and `graph.replay()`
+            with _tracing.span("compiled_step.replay"):
+                out = entry(args, kwargs, leaves)
         return out
 
     @functools.wraps(fn)

@@ -48,7 +48,19 @@ emits one engine record (`util.request_recorder`); prefills run inside
 `llm.prefill` / `llm.prefill_chunk` spans (`util.tracing`); every step
 is recorded by the step profiler (`util.step_profiler`); the `/metrics`
 text is a `serve_llm` callback on the port's registry (`util.metrics`);
-and the pump thread beats a deadman probe (`_private.health`).
+and the pump thread beats a deadman probe (`_private.health`). Beyond
+the JAX engine's spans, the port's split each step into its phases, one
+span of each a step and none a sequence: `llm.step` (the whole of
+`step()`, inside the step lock), `llm.admit` (shedding expired requests
+and admission; one more for each further prefill slot when
+`max_prefills_per_step` > 1), the prefill spans, and `llm.decode` with
+`llm.decode.inputs` (the token, position and page-table tensors),
+`llm.decode.sync` (the argmax copied to the host) and `llm.decode.post`
+(the new K/V into the arena, the emits, finished sequences); a step
+function's call runs in `compiled_step.lookup` and
+`compiled_step.replay`. With `RAY_TPU_TRACE=1` they reach the JSONL
+shard; while a `torch.profiler` session records they are ranges on its
+timeline, where a reader splits the device's idle time by phase.
 
 Serve's native request ring feeds the engine directly, as in the JAX
 engine: a replica attaches its sub-ring (`attach_intake`) and the pump
@@ -516,8 +528,9 @@ class LLMEngine:
                     *self._d_decode_fns.values(), self._d_chunk_fn]
         return fns
 
-    # Dispatch. Integer inputs go in as host tensors, which a graph
-    # copies through its pinned staging buffers; the arena goes in live.
+    # Dispatch. Integer inputs go in as host tensors (`_ints` of a list,
+    # or a tensor the caller made), which a graph copies through its
+    # pinned staging buffers; the arena goes in live.
 
     @staticmethod
     def _ints(values) -> torch.Tensor:
@@ -629,16 +642,22 @@ class LLMEngine:
         """One engine iteration: admit + prefill up to
         `max_prefills_per_step` prompts, then one decode pass over the
         running set. Returns False when there was nothing to do."""
-        with self._step_lock, torch.inference_mode():
+        slots = self.config.max_prefills_per_step
+        with self._step_lock, torch.inference_mode(), \
+                _tracing.span("llm.step"):
             t0 = time.perf_counter()
             prefill_ms = decode_ms = 0.0
             tokens_out = 0
             advanced = False
-            self._shed_expired()
-            for _ in range(self.config.max_prefills_per_step):
-                if len(self._prefilling) < \
-                        self.config.max_prefills_per_step:
+            with _tracing.span("llm.admit"):
+                self._shed_expired()
+                if len(self._prefilling) < slots:
                     self._admit_one()
+            for slot in range(slots):
+                # a later slot admits once the prefill before it ran
+                if slot and len(self._prefilling) < slots:
+                    with _tracing.span("llm.admit"):
+                        self._admit_one()
                 if not self._prefilling:
                     break
                 t1 = time.perf_counter()
@@ -650,10 +669,11 @@ class LLMEngine:
                 prefill_ms += (time.perf_counter() - t1) * 1e3
             if self._running:
                 t1 = time.perf_counter()
-                if self.kv_d is not None:
-                    tokens_out += self._spec_decode_once()
-                else:
-                    tokens_out += self._decode_once()
+                with _tracing.span("llm.decode"):
+                    if self.kv_d is not None:
+                        tokens_out += self._spec_decode_once()
+                    else:
+                        tokens_out += self._decode_once()
                 decode_ms += (time.perf_counter() - t1) * 1e3
             did = bool(tokens_out) or advanced
             if did:
@@ -870,31 +890,34 @@ class LLMEngine:
         seq.d_pos = seq.d_prefilled
 
     def _decode_once(self) -> int:
-        with self._lock:
-            runs = list(self._running)
-        bb = min(b for b in self.config.batch_buckets if b >= len(runs))
-        pad = bb - len(runs)
-        tokens = [seq.last_token for seq in runs] + [0] * pad
-        positions = [seq.pos for seq in runs] + [0] * pad
-        page_table = [
-            seq.pages + [0] * (self.max_pages_per_seq - len(seq.pages))
-            for seq in runs] + [[0] * self.max_pages_per_seq] * pad
-        self._note_call("decode", bb)
+        with _tracing.span("llm.decode.inputs"):
+            with self._lock:
+                runs = list(self._running)
+            bb = min(b for b in self.config.batch_buckets if b >= len(runs))
+            pad = bb - len(runs)
+            tokens = self._ints([seq.last_token for seq in runs] + [0] * pad)
+            positions = self._ints([seq.pos for seq in runs] + [0] * pad)
+            page_table = self._ints([
+                seq.pages + [0] * (self.max_pages_per_seq - len(seq.pages))
+                for seq in runs] + [[0] * self.max_pages_per_seq] * pad)
+            self._note_call("decode", bb)
         logits, new_k, new_v = self._decode(tokens, positions, page_table)
-        next_tokens = torch.argmax(logits, dim=-1).tolist()  # one sync
-        finished = []
-        for i, seq in enumerate(runs):
-            # the new token's K/V lands in the cache after the step
-            self.kv.append(seq.pages, seq.pos, new_k[i], new_v[i])
-            seq.pos += 1
-            tok = next_tokens[i]
-            seq.req._emit(tok)
-            if self._seq_finished(seq, tok):
-                finished.append(seq)
-        with self._lock:
-            self.counters["decode_steps"] += 1
-        for seq in finished:
-            self._finish(seq)
+        with _tracing.span("llm.decode.sync"):
+            next_tokens = torch.argmax(logits, dim=-1).tolist()  # one sync
+        with _tracing.span("llm.decode.post"):
+            finished = []
+            for i, seq in enumerate(runs):
+                # the new token's K/V lands in the cache after the step
+                self.kv.append(seq.pages, seq.pos, new_k[i], new_v[i])
+                seq.pos += 1
+                tok = next_tokens[i]
+                seq.req._emit(tok)
+                if self._seq_finished(seq, tok):
+                    finished.append(seq)
+            with self._lock:
+                self.counters["decode_steps"] += 1
+            for seq in finished:
+                self._finish(seq)
         return len(runs)
 
     def _spec_decode_once(self) -> int:

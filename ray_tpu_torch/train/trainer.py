@@ -37,6 +37,7 @@ from ray_tpu_torch.train._internal.checkpoint_manager import (
     IncompleteCheckpointError,
 )
 from ray_tpu_torch.train.backend import BackendConfig, TorchConfig
+from ray_tpu_torch.util import tracing as _tracing
 
 
 class TrainStepRunner:
@@ -132,40 +133,67 @@ class TrainStepRunner:
 
         Every call lands one ``StepStats`` record in the flight recorder
         (``ray_tpu_torch.util.step_profiler``): data-wait (batch pull +
-        stack), host-dispatch (time in the compiled call) and — when
-        ``RAY_TPU_PROFILE_SYNC`` is on, the default — device-execute as
-        the time to ``torch.cuda.synchronize`` the device afterwards.
-        Disable the recorder wholesale with ``RAY_TPU_STEP_PROFILER=0``:
-        ``run`` is then the bare call."""
-        import torch
+        stack), host-dispatch (time in the compiled call) and, on the
+        card, device-execute: the elapsed time between two timing CUDA
+        events recorded around the compiled call. The host does not
+        synchronize for it. A call's events are read after the next
+        call has launched (the host waits there for the previous step,
+        with this one queued behind it, so it runs at most one step
+        ahead of the card), and the last call's when the recorder's
+        records are read. So a call's ``total_ms`` is, in steady state,
+        one device step. Disable the recorder wholesale with
+        ``RAY_TPU_STEP_PROFILER=0``: ``run`` is then the bare call.
 
+        Spans (``util.tracing``): ``train.step`` around the call, with
+        ``train.prep`` (the batch pull), the compiled call's
+        ``compiled_step.lookup`` and ``compiled_step.replay``, and
+        ``train.record`` (reading the previous call's events and
+        recording this one) inside it."""
         from ray_tpu_torch.util import step_profiler
 
-        if not step_profiler.enabled():
-            return self._compiled(carry, self._prep_batches(batches))
-        t0 = time.perf_counter()
-        batches = self._prep_batches(batches)
-        t1 = time.perf_counter()
-        out = self._compiled(carry, batches)
-        t2 = time.perf_counter()
-        device_ms = 0.0
-        if step_profiler.sync_mode():
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            device_ms = (time.perf_counter() - t2) * 1e3
-        self._step += self.steps_per_call
-        k = self.steps_per_call
-        step_profiler.record_step(
-            self._step, (time.perf_counter() - t0) * 1e3,
-            host_dispatch_ms=(t2 - t1) * 1e3,
-            device_execute_ms=device_ms,
-            data_wait_ms=(t1 - t0) * 1e3,
-            tokens=self._tokens_per_step * k,
-            flops=self._flops_per_step * k,
-            steps_per_call=k,
-            peak=self._peak_flops,
-        )
-        return out
+        with _tracing.span("train.step"):
+            if not step_profiler.enabled():
+                with _tracing.span("train.prep"):
+                    batches = self._prep_batches(batches)
+                return self._compiled(carry, batches)
+            t0 = time.perf_counter()
+            with _tracing.span("train.prep"):
+                batches = self._prep_batches(batches)
+            t1 = time.perf_counter()
+            events = self._timing_events()
+            if events is not None:
+                events[0].record(events[2])
+            out = self._compiled(carry, batches)
+            if events is not None:
+                events[1].record(events[2])
+            t2 = time.perf_counter()
+            with _tracing.span("train.record"):
+                step_profiler.resolve_device_times()
+                self._step += self.steps_per_call
+                k = self.steps_per_call
+                step_profiler.record_step(
+                    self._step, (time.perf_counter() - t0) * 1e3,
+                    host_dispatch_ms=(t2 - t1) * 1e3,
+                    data_wait_ms=(t1 - t0) * 1e3,
+                    tokens=self._tokens_per_step * k,
+                    flops=self._flops_per_step * k,
+                    steps_per_call=k,
+                    peak=self._peak_flops,
+                    device_events=None if events is None else events[:2],
+                )
+            return out
+
+    def _timing_events(self):
+        """(start, end, stream): two timing CUDA events for the call's
+        device work on the stream it runs on; None on the CPU, where the
+        call is the work."""
+        if self.device.type != "cuda":
+            return None
+        import torch
+
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True),
+                torch.cuda.current_stream(self.device))
 
     def cache_stats(self):
         return self._compiled.cache.stats.as_dict()

@@ -11,6 +11,16 @@ buffers live in every process:
     tokens/flops and the derived MFU. Bounded (``RAY_TPU_STEP_RING``,
     default 1024 records): the oldest record is evicted.
 
+    A record may be appended before its device time is known: the train
+    runner passes the pair of timing CUDA events it recorded around its
+    call (``record_step(..., device_events=)``), and the record's
+    ``device_execute_ms`` is their elapsed time, filled in by
+    ``resolve_device_times()``. The runner calls that after its next
+    call has launched, so the host waits for a step only while the next
+    one is queued behind it; ``recent()`` and ``metrics_text()`` call it
+    before they read, and so never show a record without its device
+    time. Nothing in the recorder synchronizes the device.
+
 dispatch ring
     Sampled host times of `parallel.compiled_step` calls (one in
     ``RAY_TPU_DISPATCH_SAMPLE`` calls, default 16; the unsampled cost
@@ -21,16 +31,18 @@ Export surfaces, as in the JAX package: ``metrics_text()`` is a
 scrape-time callback on the port's ``DEFAULT_REGISTRY``
 (``train_step_*`` and ``compiled_dispatch_*`` families); with
 ``RAY_TPU_TRACE=1`` each record is also appended to a
-``steps-<pid>.jsonl`` shard beside the span shards, which ``collect()``
-merges and ``to_chrome()`` renders as a per-process "train-step" row;
-``format_table()`` prints the last-N table (the CLI's ``profile``).
+``steps-<pid>.jsonl`` shard beside the span shards (once its device time
+is resolved), which ``collect()`` merges and ``to_chrome()`` renders as
+a per-process "train-step" row; ``format_table()`` prints the last-N
+table (the CLI's ``profile``).
 
 MFU divides by the card's peak: ``_detect_peak_flops`` asks
 ``torch.cuda`` for the device and knows the H100's dense bf16 peak.
 
 Recording never raises and never blocks: ring appends are GIL-atomic
 ``deque.append`` calls, shard writes are line-buffered and swallow
-OSError.
+OSError. Only resolving a device time waits, for the device work its
+events enclose.
 """
 
 from __future__ import annotations
@@ -48,8 +60,6 @@ from ray_tpu_torch.util import tracing as _tracing
 
 # -- knobs (cached at import; refresh() re-reads, tests/bench may call
 # set_enabled() to toggle in-process without an env round trip) ----------
-
-_TRUTHY = ("1", "true", "on", "yes")
 
 
 def _env_enabled() -> bool:
@@ -84,14 +94,6 @@ def enabled() -> bool:
 def set_enabled(value: bool) -> None:
     global _ENABLED
     _ENABLED = bool(value)
-
-
-def sync_mode() -> bool:
-    """Whether a train-step runner fences each step with
-    ``torch.cuda.synchronize()`` to split host dispatch from device
-    execution (default on; ``RAY_TPU_PROFILE_SYNC=0`` keeps dispatch
-    fully asynchronous)."""
-    return os.environ.get("RAY_TPU_PROFILE_SYNC", "1").lower() in _TRUTHY
 
 
 def refresh() -> None:
@@ -180,6 +182,10 @@ _DISPATCH_RING: collections.deque = collections.deque(maxlen=256)
 _dispatch_calls = 0           # every call (unsampled cost: one += )
 _dispatch_sampled = 0
 
+# records whose device time is still to be read: (record, start event,
+# end event), oldest first
+_UNRESOLVED: collections.deque = collections.deque()
+
 # per-thread pending phase accumulators folded into the next record_step
 # (collectives/checkpoint code paths call add_phase_ms without having
 # the step context in hand)
@@ -267,9 +273,13 @@ def record_step(step: int, total_ms: float, *,
                 tokens: int = 0, flops: float = 0.0,
                 steps_per_call: int = 1,
                 peak: Optional[float] = None,
+                device_events=None,
                 **attrs) -> Optional[StepStats]:
     """Record one step (or one K-step dispatch). Returns the record, or
-    None when the recorder is disabled."""
+    None when the recorder is disabled. ``device_events``: a (start,
+    end) pair of timing CUDA events around the step's device work,
+    whose elapsed ms ``resolve_device_times()`` adds to the record's
+    ``device_execute_ms`` later."""
     if not _ENABLED:
         return None
     pending = take_pending()
@@ -294,8 +304,28 @@ def record_step(step: int, total_ms: float, *,
         if p:
             rec.mfu = flops / (total_ms / 1e3) / p
     _RING.append(rec)
-    _write_shard(rec)
+    if device_events is None:
+        _write_shard(rec)
+    else:
+        _UNRESOLVED.append((rec, *device_events))
     return rec
+
+
+def resolve_device_times() -> None:
+    """Fill in the device time of every record that still waits for
+    its events, oldest first: waits until each one's device work has
+    ended, then writes its shard record."""
+    while True:
+        try:
+            rec, start, end = _UNRESOLVED.popleft()
+        except IndexError:
+            return
+        try:
+            end.synchronize()
+            rec.device_execute_ms += start.elapsed_time(end)
+        except RuntimeError:  # recorder must never raise
+            pass
+        _write_shard(rec)
 
 
 def record_dispatch(name: str, host_ms: float) -> None:
@@ -331,6 +361,7 @@ def dispatch_stats() -> Dict[str, Any]:
 def clear() -> None:
     global _dispatch_calls, _dispatch_sampled
     _RING.clear()
+    _UNRESOLVED.clear()
     _DISPATCH_RING.clear()
     _dispatch_calls = _dispatch_sampled = 0
     _pending.acc = {}
@@ -339,6 +370,7 @@ def clear() -> None:
 # -- summaries (CLI/dashboard) -------------------------------------------
 
 def recent(n: Optional[int] = None) -> List[Dict[str, Any]]:
+    resolve_device_times()
     return [r.as_dict() for r in _RING.recent(n)]
 
 
@@ -387,6 +419,7 @@ def metrics_text() -> str:
     as a DEFAULT_REGISTRY callback below — no per-step metric objects,
     which is exactly what raylint's metric-in-hot-loop check exists to
     keep out of the hot path)."""
+    resolve_device_times()
     recs = _RING.recent()
     lines = [
         "# TYPE train_steps_recorded_total counter",

@@ -1,4 +1,5 @@
-"""Tracing: spans as JSONL shards, merged into a chrome://tracing view.
+"""Tracing: spans as JSONL shards, merged into a chrome://tracing view,
+and as ranges on a running `torch.profiler` session's timeline.
 
 The port's own copy of `ray_tpu/util/tracing.py`: spans are plain dicts
 written as one JSONL shard per process (zero deps, zero cost when
@@ -10,6 +11,18 @@ under the temporary directory (`TMPDIR`). The runtime's task spans
 (`submit_span`, `execute_span`) carry trace and parent ids through
 `TaskSpec.trace_ctx`, so spans from every process of a cluster stitch
 into one trace.
+
+The second sink: while a `torch.profiler` session records, every span
+also opens a `torch.autograd.profiler.record_function` range of its
+name, whatever `RAY_TPU_TRACE` says. The range lands in the profiler's
+trace as a `user_annotation` event on the thread that ran the span, on
+the clock of the device's kernels, so a reader of that trace can say
+which span the host was in while the device idled. A session records
+the ranges of the thread that started it, or of every thread when it
+is started with `profile_all_threads=True` (its `experimental_config`).
+The check reads torch through `sys.modules` (a process that never
+imported torch is not made to) and costs about 0.1 µs; with both sinks
+off a span costs about 0.7 µs (one core of an 8-vCPU Intel Xeon VM).
 """
 
 from __future__ import annotations
@@ -18,6 +31,7 @@ import contextlib
 import contextvars
 import json
 import os
+import sys
 import tempfile
 import threading
 import time
@@ -47,8 +61,19 @@ if hasattr(os, "register_at_fork"):
     os.register_at_fork(after_in_child=_reset_writer)
 
 
+_TRUTHY = ("1", "true", "on")
+# os.environ's own mapping where it has one (CPython): a lookup there
+# costs ~0.1 µs against os.environ.get's ~1.6 µs, and every span makes one
+_ENV_KEY = getattr(os.environ, "encodekey", str)("RAY_TPU_TRACE")
+_ENV_TRUTHY = tuple(getattr(os.environ, "encodevalue", str)(v)
+                    for v in _TRUTHY)
+
+
 def enabled() -> bool:
-    return os.environ.get("RAY_TPU_TRACE", "") in ("1", "true", "on")
+    data = getattr(os.environ, "_data", None)
+    if data is None:
+        return os.environ.get("RAY_TPU_TRACE", "") in _TRUTHY
+    return data.get(_ENV_KEY) in _ENV_TRUTHY
 
 
 def trace_dir() -> str:
@@ -75,41 +100,103 @@ def _new_id() -> str:
     return uuid.uuid4().hex[:16]
 
 
-@contextlib.contextmanager
+def profiling() -> bool:
+    """Whether a `torch.profiler` session records in this process, on
+    any thread (PyTorch's own process-wide flag, which its compiler
+    reads for the same purpose; `torch.autograd._profiler_enabled()`
+    answers for the calling thread alone, so a thread the session's
+    owner did not start, such as the LLM engine's pump, would never
+    open a range, not even for a session that records every thread).
+    Read through `sys.modules`: a process that never imported torch is
+    not made to."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return getattr(prof, "_is_profiler_enabled", False)
+
+
+class _Span:
+    """One span's two sinks: the JSONL record (under `RAY_TPU_TRACE`)
+    and the profiler range (while a session records)."""
+
+    __slots__ = ("name", "kind", "parent", "attrs", "_range", "_record",
+                 "_token")
+
+    def __init__(self, name, kind, parent, attrs, profiled):
+        self.name, self.kind = name, kind
+        self.parent, self.attrs = parent, attrs
+        self._range = None
+        if profiled:
+            from torch.autograd import profiler as _torch_profiler
+
+            self._range = _torch_profiler.record_function(name)
+        self._record = None
+
+    def __enter__(self) -> dict:
+        if self._range is not None:
+            self._range.__enter__()
+        if not enabled():
+            return {}
+        cur = _current.get()
+        parent = self.parent
+        if parent is None and cur is not None:
+            parent = {"trace_id": cur["trace_id"],
+                      "span_id": cur["span_id"]}
+        s = self._record = {
+            "trace_id": (parent or {}).get("trace_id") or _new_id(),
+            "span_id": _new_id(),
+            "parent_id": (parent or {}).get("span_id"),
+            "name": self.name,
+            "kind": self.kind,
+            "pid": os.getpid(),
+            "start": time.time(),
+            "attrs": dict(self.attrs or {}),
+        }
+        self._token = _current.set(s)
+        return s
+
+    def __exit__(self, etype, exc, tb) -> bool:
+        s = self._record
+        try:
+            if s is not None:
+                if etype is not None and issubclass(etype, Exception):
+                    s["attrs"]["error"] = etype.__name__
+                _current.reset(self._token)
+                s["end"] = time.time()
+                try:
+                    _writer().write(json.dumps(s) + "\n")
+                except OSError:  # tracing must never break the task path
+                    pass
+        finally:
+            if self._range is not None:
+                self._range.__exit__(etype, exc, tb)
+        return False
+
+
+class _Off:
+    """The span when neither sink is on: enters to a fresh empty dict."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> dict:
+        return {}
+
+    def __exit__(self, etype, exc, tb) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
 def span(name: str, kind: str = "internal",
          parent: Optional[Dict[str, str]] = None,
-         attrs: Optional[Dict[str, Any]] = None) -> Iterator[dict]:
+         attrs: Optional[Dict[str, Any]] = None):
     """Record one span; nests under the context-local current span
-    unless an explicit cross-process `parent` ctx is given."""
-    if not enabled():
-        yield {}
-        return
-    cur = _current.get()
-    if parent is None and cur is not None:
-        parent = {"trace_id": cur["trace_id"], "span_id": cur["span_id"]}
-    s = {
-        "trace_id": (parent or {}).get("trace_id") or _new_id(),
-        "span_id": _new_id(),
-        "parent_id": (parent or {}).get("span_id"),
-        "name": name,
-        "kind": kind,
-        "pid": os.getpid(),
-        "start": time.time(),
-        "attrs": dict(attrs or {}),
-    }
-    token = _current.set(s)
-    try:
-        yield s
-    except Exception as e:
-        s["attrs"]["error"] = type(e).__name__
-        raise
-    finally:
-        _current.reset(token)
-        s["end"] = time.time()
-        try:
-            _writer().write(json.dumps(s) + "\n")
-        except OSError:  # tracing must never break the task path
-            pass
+    unless an explicit cross-process `parent` ctx is given. A context
+    manager that enters to the span's record (an empty dict when
+    `RAY_TPU_TRACE` is off)."""
+    profiled = profiling()
+    if not profiled and not enabled():
+        return _OFF
+    return _Span(name, kind, parent, attrs, profiled)
 
 
 def current_context() -> Optional[Dict[str, str]]:
